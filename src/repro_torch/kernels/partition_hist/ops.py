@@ -1,0 +1,26 @@
+"""Dispatcher for the radix-partition kernels.
+
+``fused_partition_pass`` is the data path behind one radix pass
+(``repro_torch.core.partition`` routes through it).  A CUDA relation goes
+through kernel A (n1+n2, ``fused.py``) and kernel B (n3, ``reorder.py``)
+at every size; a CPU relation goes through their plain versions.
+"""
+import torch
+
+from .fused import partition_hist_fused
+from .reorder import radix_scatter
+
+
+def fused_partition_pass(rel, *, shift: int, bits: int):
+    """One full radix pass (n1+n2+n3).
+
+    Returns ``(reordered Relation, starts, counts)`` for the ``bits``-wide
+    digit at ``shift``; the reorder is a stable clustering by that digit.
+    """
+    from repro_torch.core.relation import Relation
+
+    pid, counts = partition_hist_fused(rel.key, shift=shift, bits=bits)
+    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    rid, key = radix_scatter(rel.rid, rel.key, pid, starts,
+                             num_parts=1 << bits)
+    return Relation(rid, key), starts, counts

@@ -1,0 +1,83 @@
+"""Kernel B: radix-partition step n3, the stable scatter of ``(rid, key)``.
+
+Counterpart of ``repro/kernels/partition_hist/reorder.py``.  On CUDA
+tensors ``radix_scatter`` launches ``csrc/radix_scatter.cu`` (per-tile
+histograms, a scan across tiles, a stable warp-ordered scatter) at any
+``n``; on CPU tensors it runs ``radix_scatter_plain``, a stable sort by
+``pid`` plus gathers.  Both equal a stable sort bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MIN_TILE = 2048
+
+launches = 0  # kernel launches since the last reset
+
+
+def tile_len(num_parts: int) -> int:
+    """Tuples per tile.  It grows with the fanout so the kernel's
+    (num_parts x tiles) offset matrix stays near n/8 ints at 2^16 bins."""
+    return max(MIN_TILE, 8 * num_parts)
+
+
+def radix_scatter_plain(rid: torch.Tensor, key: torch.Tensor,
+                        pid: torch.Tensor, starts=None, *, num_parts: int = 0):
+    """Plain version: tuples in stable ``pid`` order (``starts`` unused)."""
+    order = torch.sort(pid, stable=True).indices
+    return rid[order], key[order]
+
+
+def radix_scatter(rid: torch.Tensor, key: torch.Tensor, pid: torch.Tensor,
+                  starts: torch.Tensor, *, num_parts: int):
+    """Stable scatter of tuples to ``starts[pid] + rank within pid``.
+
+    rid/key/pid: (n,) int32 with every pid in [0, num_parts); starts:
+    (num_parts,) int32, the exclusive scan of pid's histogram.  Returns the
+    reordered ``(rid, key)``, bit-identical to a stable sort by pid.
+    """
+    if num_parts < 1 or num_parts & (num_parts - 1) or num_parts > 1 << 16:
+        raise ValueError(f"num_parts must be a power of two <= 2^16: "
+                         f"{num_parts}")
+    devices = {t.device for t in (rid, key, pid, starts)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+    dev = pid.device
+    if dev.type == "cpu":
+        return radix_scatter_plain(rid, key, pid, starts,
+                                   num_parts=num_parts)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    n = pid.shape[0]
+    for name, t, size in (("rid", rid, n), ("key", key, n), ("pid", pid, n),
+                          ("starts", starts, num_parts)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous() or t.shape[0] != size:
+            raise ValueError(f"{name} must be contiguous of shape ({size},)")
+    if n >= 1 << 31:
+        raise ValueError(f"n={n} needs int64 offsets")
+    from .._build import check, load
+
+    lib = load("radix_scatter")
+    fn = lib.radix_scatter
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    tile = tile_len(num_parts)
+    tiles = max(1, -(-n // tile))
+    offs = torch.empty(num_parts * tiles, dtype=torch.int32, device=dev)
+    out_rid = torch.empty_like(rid)
+    out_key = torch.empty_like(key)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(rid.data_ptr(), key.data_ptr(), pid.data_ptr(),
+                 starts.data_ptr(), offs.data_ptr(), out_rid.data_ptr(),
+                 out_key.data_ptr(), n, num_parts.bit_length() - 1, tile,
+                 stream)
+    check(err, "radix_scatter")
+    global launches
+    launches += 1
+    return out_rid, out_key
