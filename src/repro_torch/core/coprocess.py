@@ -32,6 +32,25 @@ def _round_up(n: int, k: int) -> int:
     return ((n + k - 1) // k) * k
 
 
+def owned_slice(rel: Relation, pid: torch.Tensor, lo: int, hi: int,
+                lcm: int, sentinel: int) -> tuple[Relation, int]:
+    """The tuples of ``rel`` whose partition id lies in ``[lo, hi)``.
+
+    Selected with a mask on the device that holds ``rel`` and ``pid``
+    (``nonzero`` keeps their order) and padded to a multiple of ``lcm``
+    with pad tuples (rid INVALID, key ``sentinel``).  Returns the slice and
+    its number of real tuples, the only value that leaves the device.
+    """
+    idx = torch.nonzero((pid >= lo) & (pid < hi)).squeeze(1)
+    k = int(idx.shape[0])
+    m = _round_up(max(k, 1), lcm)
+    rid = torch.full((m,), ht.INVALID, dtype=torch.int32, device=rel.device)
+    key = torch.full((m,), sentinel, dtype=torch.int32, device=rel.device)
+    rid[:k] = rel.rid[idx]
+    key[:k] = rel.key[idx]
+    return Relation(rid, key), k
+
+
 # Fault-injection hook: an injector plants its ``maybe_fault`` here (and
 # sets it back to None), so the hot path costs one load and one branch
 # when none is active.  Sites: "h2d", "kernel", "d2h".
@@ -330,35 +349,25 @@ class CoProcessor:
                     timing: Timing) -> ht.JoinResult:
         """Ownership exchange: partitions [0, own) -> C, the rest -> G.
 
-        Each group's tuples are selected with a mask computed on the device
-        that holds the partitioned relation (``nonzero`` keeps their order)
-        and padded to ``lcm`` with sentinel tuples; only the selected
-        counts leave that device as scalars.
+        Each group's tuples are an ``owned_slice`` of the partitioned
+        relation, selected on the device that holds it.
         """
         num_parts = 1 << total_bits
         own = self._cut(num_parts, join_ratio)
+        pids = {tag: radix_of(parts[tag].key, shift=0, bits=total_bits)
+                for tag in ("R", "S")}
+        sentinels = {"R": self.BUILD_PAD_KEY, "S": self.PROBE_PAD_KEY}
         results = []
         for grp, lo, hi in ((self.c, 0, own), (self.g, own, num_parts)):
             if lo == hi:
                 continue
             sub = {}
             for tag in ("R", "S"):
-                rel = parts[tag]
-                pid = radix_of(rel.key, shift=0, bits=total_bits)
-                idx = torch.nonzero((pid >= lo) & (pid < hi)).squeeze(1)
-                k = int(idx.shape[0])
-                m = _round_up(max(k, 1), self.lcm)
-                sent = self.BUILD_PAD_KEY if tag == "R" else \
-                    self.PROBE_PAD_KEY
-                rid = torch.full((m,), ht.INVALID, dtype=torch.int32,
-                                 device=rel.device)
-                key = torch.full((m,), sent, dtype=torch.int32,
-                                 device=rel.device)
-                rid[:k] = rel.rid[idx]
-                key[:k] = rel.key[idx]
+                rel, k = owned_slice(parts[tag], pids[tag], lo, hi, self.lcm,
+                                     sentinels[tag])
                 if self.discrete:
                     self._bus_delay(k * 8 // 2, timing)
-                sub[tag] = grp.put_items(Relation(rid, key))
+                sub[tag] = grp.put_items(rel)
             # Full capacity per group: ownership is by radix value, so a
             # skewed relation's hot partition (and all its matches) can land
             # wholly on either side regardless of join_ratio.

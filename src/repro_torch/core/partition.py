@@ -3,8 +3,8 @@
 Counterpart of ``repro/core/partition.py``.  Each pass clusters tuples by
 a slice of the hash's bits:
 
-  n1: compute partition number        (kernel A on CUDA)
-  n2: visit the partition header      (histogram, kernel A; scan)
+  n1: compute partition number        (kernel A on CUDA; D for headers)
+  n2: visit the partition header      (histogram, kernel A or E; scan)
   n3: insert <key, rid> into partition (stable scatter, kernel B on CUDA)
 
 Pass ``g`` uses hash bits ``[shift_g, shift_g + bits_g)`` and a globally
@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from ..kernels.partition_hist.ops import fused_partition_pass
+from ..kernels.partition_hist.ops import fused_partition_pass, radix_hist
 from .relation import Relation, radix_of
 
 
@@ -41,8 +41,9 @@ def partition_n1(key: torch.Tensor, *, shift: int, bits: int) -> torch.Tensor:
 
 
 def partition_n2(pid: torch.Tensor, num_parts: int):
-    """(n2) partition headers: histogram + exclusive scan (the allocator)."""
-    counts = torch.bincount(pid, minlength=num_parts).to(torch.int32)
+    """(n2) partition headers: histogram (kernel E on CUDA) + exclusive
+    scan (the allocator)."""
+    counts = radix_hist(pid, num_parts=num_parts)
     starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     return starts, counts
 

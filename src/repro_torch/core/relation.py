@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels.hash.ops import hash_bucket
 from ..kernels.partition_hist.fused import (MURMUR_C1, MURMUR_C2,
                                             fmix32_int64)
 
@@ -201,12 +202,21 @@ murmur3_fmix32 = fmix32_int64
 
 
 def bucket_of(key: torch.Tensor, num_buckets: int) -> torch.Tensor:
-    """Step b1/p1/n1: hash bucket number (num_buckets must be 2**k)."""
-    return (murmur3_fmix32(key) & (num_buckets - 1)).to(torch.int32)
+    """Step b1/p1/n1: hash bucket number (num_buckets must be 2**k).
+
+    Kernel D (``hash_bucket``) on a CUDA tensor, its plain version on a
+    CPU tensor."""
+    return hash_bucket(key, num_buckets=num_buckets)
 
 
 def radix_of(key: torch.Tensor, *, shift: int, bits: int) -> torch.Tensor:
-    """Partition number for one radix pass: a slice of the hash's bits."""
+    """Partition number for one radix pass: a slice of the hash's bits.
+
+    The low slice (``shift == 0``) is a bucket number and goes through
+    ``hash_bucket`` (kernel D on CUDA); a higher slice is plain torch, as
+    no TPU kernel computes it."""
+    if shift == 0 and bits <= 31:
+        return hash_bucket(key, num_buckets=1 << bits)
     h = murmur3_fmix32(key)
     return ((h >> shift) & ((1 << bits) - 1)).to(torch.int32)
 

@@ -3,9 +3,13 @@
 Kernel sources live in ``repro_torch/csrc`` and are built at first use
 (``_build.py``), never at import.
 """
-from .partition_hist import fused as _fused, reorder as _reorder
+from .agg import agg as _agg
+from .hash import hash as _hash
+from .partition_hist import (fused as _fused, partition_hist as _hist,
+                             reorder as _reorder)
 
-_COUNTED = {"partition_hist_fused": _fused, "radix_scatter": _reorder}
+_COUNTED = {"partition_hist_fused": _fused, "radix_scatter": _reorder,
+            "seg_agg": _agg, "hash_bucket": _hash, "radix_hist": _hist}
 
 
 def launch_counts() -> dict[str, int]:

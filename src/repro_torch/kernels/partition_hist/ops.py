@@ -1,14 +1,19 @@
-"""Dispatcher for the radix-partition kernels.
+"""Dispatchers for the radix-partition kernels.
 
 ``fused_partition_pass`` is the data path behind one radix pass
 (``repro_torch.core.partition`` routes through it).  A CUDA relation goes
 through kernel A (n1+n2, ``fused.py``) and kernel B (n3, ``reorder.py``)
 at every size; a CPU relation goes through their plain versions.
+``radix_hist`` (kernel E, ``partition_hist.py``) is step n2 on its own,
+behind ``partition_n2``.
 """
 import torch
 
 from .fused import partition_hist_fused
+from .partition_hist import radix_hist
 from .reorder import radix_scatter
+
+__all__ = ["fused_partition_pass", "radix_hist"]
 
 
 def fused_partition_pass(rel, *, shift: int, bits: int):

@@ -1,0 +1,60 @@
+"""Kernel E: radix-partition step n2 on its own, the histogram of a pid
+vector.
+
+Counterpart of ``repro/kernels/partition_hist/partition_hist.py``.  On a
+CUDA tensor ``radix_hist`` launches ``csrc/radix_hist.cu`` at any ``n``;
+on a CPU tensor it runs ``radix_hist_plain``, the same function in plain
+PyTorch.  Both drop pids outside ``[0, num_parts)``, as the TPU kernel's
+one-hot and the JAX package's ``segment_sum`` do.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MAX_PARTS = 1 << 16  # MAX_TOTAL_BITS of the pass planner
+
+launches = 0  # kernel launches since the last reset
+
+
+def radix_hist_plain(pid: torch.Tensor, *, num_parts: int) -> torch.Tensor:
+    """Plain version: (num_parts,) int32 counts; out-of-range pids go to
+    an overflow bin that is cut off."""
+    valid = (pid >= 0) & (pid < num_parts)
+    spill = torch.where(valid, pid, num_parts).to(torch.int64)
+    counts = torch.bincount(spill, minlength=num_parts + 1)
+    return counts[:num_parts].to(torch.int32)
+
+
+def radix_hist(pid: torch.Tensor, *, num_parts: int) -> torch.Tensor:
+    """Histogram of ``pid`` over ``num_parts`` bins.
+
+    pid: (n,) int32; num_parts in [1, 2^16].  Returns (num_parts,) int32;
+    pids outside ``[0, num_parts)`` are not counted.
+    """
+    if not 1 <= num_parts <= MAX_PARTS:
+        raise ValueError(f"num_parts must be in [1, 2^16]: {num_parts}")
+    if pid.device.type == "cpu":
+        return radix_hist_plain(pid, num_parts=num_parts)
+    if pid.device.type != "cuda":
+        raise ValueError(f"unsupported device {pid.device}")
+    if pid.dtype != torch.int32:
+        raise TypeError(f"pid must be int32, got {pid.dtype}")
+    if pid.dim() != 1 or not pid.is_contiguous():
+        raise ValueError("pid must be a contiguous 1-D tensor")
+    from .._build import check, load
+
+    fn = load("radix_hist").radix_hist
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    hist = torch.empty(num_parts, dtype=torch.int32, device=pid.device)
+    with torch.cuda.device(pid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(pid.data_ptr(), hist.data_ptr(), pid.shape[0], num_parts,
+                 stream)
+    check(err, "radix_hist")
+    global launches
+    launches += 1
+    return hist

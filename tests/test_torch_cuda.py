@@ -6,9 +6,13 @@ import pytest
 import torch
 
 import repro_torch.core as tc
+import repro_torch.ops  # noqa: F401  (attaches CoProcessor.groupby)
 from repro_torch.core import interop
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.partition_hist import fused, reorder
+from repro_torch.kernels.agg import agg
+from repro_torch.kernels.hash import hash as hsh
+from repro_torch.kernels.partition_hist import (fused, partition_hist,
+                                                reorder)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,8 +66,11 @@ def test_phj_join_on_card_equals_cpu(dev, kind):
     reset_launch_counts()
     got = tc.phj_join(b.to(dev), p.to(dev), max_out=mo)
     passes = len(tc.resolve_schedule(n))
+    # D: the final headers' pids and the join's bucket ids, per relation;
+    # E: the final headers' histogram, per relation.
     assert launch_counts() == {"partition_hist_fused": 2 * passes,
-                               "radix_scatter": 2 * passes}
+                               "radix_scatter": 2 * passes, "seg_agg": 0,
+                               "hash_bucket": 4, "radix_hist": 2}
     for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
         assert np.array_equal(w, g)
 
@@ -79,3 +86,81 @@ def test_coprocessor_dd_on_card_equals_cpu(dev):
     for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
         assert np.array_equal(w, g)
     assert t.phase_s["partition"] > 0 and t.phase_s["join"] > 0
+
+
+def _ints(rng, n, lo=-2**31, hi=2**31):
+    return rng.integers(lo, hi, n, dtype=np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4097, 100_003])
+@pytest.mark.parametrize("slots", [1, 1000, None])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("wrap32", [False, True])
+def test_seg_agg_matches_plain_version(dev, n, slots, order, wrap32):
+    rng = np.random.default_rng(n)
+    s = slots or n                                  # None: S = n
+    gid = rng.integers(-1, s + 2, n).astype(np.int32)
+    if order == "sorted":
+        gid.sort()
+    g = torch.from_numpy(gid).to(dev)
+    v = torch.from_numpy(_ints(rng, n)).to(dev)
+    got = agg.seg_agg(g, v, num_slots=s, wrap32=wrap32)
+    want = agg.seg_agg_plain(g, v, num_slots=s, wrap32=wrap32)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [1, 33, 4097, 100_003])
+def test_hash_and_hist_match_plain_versions(dev, n):
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(_ints(rng, n)).to(dev)
+    for b in (1, 2, 1 << 7, 1 << 13, 1 << 31):
+        assert torch.equal(hsh.hash_bucket(keys, num_buckets=b),
+                           hsh.hash_bucket_plain(keys, num_buckets=b))
+    for p in (1, 2, 1 << 7, 1 << 13, 1 << 16):
+        pid = torch.from_numpy(rng.integers(-2, p + 2, n)
+                               .astype(np.int32)).to(dev)
+        assert torch.equal(partition_hist.radix_hist(pid, num_parts=p),
+                           partition_hist.radix_hist_plain(pid, num_parts=p))
+
+
+def test_new_wrappers_reject_bad_inputs(dev):
+    k64 = torch.zeros(64, dtype=torch.int64, device=dev)
+    strided = torch.zeros(128, dtype=torch.int32, device=dev)[::2]
+    with pytest.raises(TypeError):
+        hsh.hash_bucket(k64, num_buckets=4)
+    with pytest.raises(ValueError):
+        partition_hist.radix_hist(strided, num_parts=4)
+    with pytest.raises(TypeError):
+        agg.seg_agg(k64, k64, num_slots=4)
+    with pytest.raises(ValueError):
+        agg.seg_agg(strided, strided[:32], num_slots=4)
+
+
+@pytest.mark.parametrize("schedule,pr,ar", [
+    (None, 0.0, 0.0), (None, 0.5, 0.5), ((7, 6), 0.0, 0.0),
+    ((7, 6), 0.25, 0.4), ((3, 2), 1.0, 0.25)])
+@pytest.mark.parametrize("wrap32", [False, True])
+def test_groupby_on_card_equals_cpu(dev, schedule, pr, ar, wrap32):
+    n = 1 << 16
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, n // 64, n).astype(np.int32)
+    vals = _ints(rng, n)
+    rel = tc.Relation(torch.arange(n, dtype=torch.int32),
+                      torch.from_numpy(keys))
+    kw = dict(schedule=schedule, partition_ratio=pr, agg_ratio=ar,
+              wrap32=wrap32)
+    want, _ = tc.CoProcessor("cpu", "cpu").groupby(rel, vals, **kw)
+    reset_launch_counts()
+    got, t = tc.CoProcessor("cpu", dev).groupby(
+        rel.to(dev), torch.from_numpy(vals).to(dev), **kw)
+    counts = launch_counts()
+    for f in ("keys", "counts", "sums", "mins", "maxs"):
+        w, g = getattr(want, f), getattr(got, f)
+        assert w.dtype == g.dtype and np.array_equal(w, g), f
+    if ar < 1.0:
+        assert counts["seg_agg"] > 0
+    if schedule and pr < 1.0:     # A, B, then D and E on the headers
+        assert all(counts[k] > 0 for k in ("partition_hist_fused",
+                                           "radix_scatter", "hash_bucket",
+                                           "radix_hist"))
+    assert t.phase_s["agg"] > 0
