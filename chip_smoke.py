@@ -14,10 +14,18 @@ just after, and verifies each against a NumPy oracle:
   default size, §5.1) and ``CoProcessor.phj`` under GPU_ONLY and DD;
 * the group-by: ``CoProcessor.groupby`` over 2^24 tuples with 2^18
   uniform group keys, GPU_ONLY unpartitioned and partitioned, and DD
-  partitioned and separate at 2^22 (the C share on the host CPU).
+  partitioned and separate at 2^22 (the C share on the host CPU);
+* the partitioned probe join (kernel F): ``build_partitioned_table`` and
+  ``probe`` over 2^24 unique x 2^24 uniform tuples at 13 radix bits;
+* the co-processed SHJ: ``CoProcessor.shj`` GPU_ONLY at 2^24, CPU_ONLY,
+  DD and PL in both table modes and DD discrete at 2^22,
+  ``basic_unit_shj`` at 2^22, and the semi / anti / left-outer probes of
+  ``probe_table_variant`` (GPU_ONLY at 2^24, DD at 2^22).
 
-Then it times each kernel at the main paths' shapes beside its bound, its
-plain version and one PyTorch library call (or a composite of them).
+Kernel F (partitioned probe) is held against its plain version first,
+like A-E.  Then the script times each kernel at the main paths' shapes
+beside its bound, its plain version and one PyTorch library call (or a
+composite of them).
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, and the
@@ -26,6 +34,7 @@ CUDA device, or without the rest of the repository beside it.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -40,16 +49,23 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch.kernels as rk  # noqa: E402
 import repro_torch.ops  # noqa: E402,F401  (attaches CoProcessor.groupby)
-from repro_torch.core import (CoProcessor, Relation, join_oracle,  # noqa: E402
-                              phj_join, radix_partition_scheduled,
-                              radix_of, resolve_schedule, uniform_relation)
+from repro_torch.core import (PCIE_LINK, CoProcessor,  # noqa: E402
+                              Relation, join_oracle, phj_join,
+                              radix_partition_scheduled, radix_of,
+                              resolve_schedule, uniform_relation,
+                              unique_relation)
 from repro_torch.core.coprocess import owned_slice  # noqa: E402
 from repro_torch.kernels._build import build_all  # noqa: E402
 from repro_torch.kernels.agg import agg  # noqa: E402
 from repro_torch.kernels.hash import hash as hsh  # noqa: E402
 from repro_torch.kernels.partition_hist import (  # noqa: E402
     fused, partition_hist, reorder)
+from repro_torch.kernels.probe import ops as pops  # noqa: E402
+from repro_torch.kernels.probe import probe as pprobe  # noqa: E402
+from repro_torch.kernels.probe.ref import (  # noqa: E402
+    probe_ref, random_layout)
 from repro_torch.ops import groupby as gb  # noqa: E402
+from repro_torch.ops import join_variants as jv  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 N_MAIN = 1 << 24            # paper §5.1 default relation size
@@ -79,11 +95,28 @@ KERNELS = {
     "radix_hist": {
         "source": "src/repro_torch/csrc/radix_hist.cu",
         "replaces": "src/repro/kernels/partition_hist/partition_hist.py:32"},
+    "partitioned_probe": {
+        "source": "src/repro_torch/csrc/partitioned_probe.cu",
+        "replaces": "src/repro/kernels/probe/probe.py:54"},
 }
+PROBE_BITS = 13             # the planner's (7, 6) schedule at 2^24
+# (P, K, M) of kernel F's check: P in {1, 16, 2^13} x K in {8, 2304}, a
+# row past the 48 KB default of shared memory, and one longer than shared
+# memory holds at all (searched in device memory).
+GRID_PROBE = ((1, 8, 8), (16, 8, 300), (8192, 8, 128), (1, 2304, 5000),
+              (16, 2304, 2304), (8192, 2304, 2304), (16, 32768, 4096),
+              (1, 1 << 20, 1 << 16))
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def log_phase(label: str) -> None:
+    log(f"{label} (at {time.perf_counter() - T_START:.1f} s)")
 
 
 def smi_line() -> str:
@@ -202,6 +235,19 @@ def check_group_kernels(dev) -> dict[str, int]:
     return err
 
 
+@functools.lru_cache(maxsize=None)
+def uniform_oracle(n: int) -> np.ndarray:
+    """``join_oracle`` of uniform(n, seed 1) x uniform(n, seed 2), once per
+    n: phases 4, 5 and 8 join the same relations."""
+    return join_oracle(uniform_relation(n, seed=1, device="cpu"),
+                       uniform_relation(n, seed=2, device="cpu"))
+
+
+def phase_ms(t) -> dict:
+    """A ``Timing``'s phase seconds as milliseconds, for the log."""
+    return {k: round(v * 1e3, 3) for k, v in t.phase_s.items()}
+
+
 def verify(res, exp: np.ndarray, what: str) -> None:
     """Count and sorted pairs equal to the oracle's ``exp``."""
     got = res.valid_pairs()
@@ -216,7 +262,7 @@ def run_main_path(dev) -> dict:
     probe = uniform_relation(N_MAIN, seed=2, device=dev)
     sched = resolve_schedule(N_MAIN)
     # max_out = 2n + matches, as examples/coprocess_join.py sizes it.
-    exp = join_oracle(build, probe)
+    exp = uniform_oracle(N_MAIN)
     max_out = 2 * N_MAIN + len(exp)
     log(f"  schedule {sched}, max_out {max_out}")
     phj_join(build, probe, max_out=max_out)          # warm-up
@@ -247,7 +293,7 @@ def run_coprocessor(dev) -> dict:
                               ("DD", N_DD, 0.25, 0.4)):
         build = uniform_relation(n, seed=1, device=dev)
         probe = uniform_relation(n, seed=2, device=dev)
-        exp = join_oracle(build, probe)
+        exp = uniform_oracle(n)
         rk.reset_launch_counts()
         res, t = cp.phj(build, probe, shj_bits=2, max_out=2 * n + len(exp),
                         partition_ratio=pr, join_ratio=jr)
@@ -351,9 +397,7 @@ def run_groupby(dev) -> dict:
             for scheme, sched, pr, ar in runs:
                 _, t = cp.groupby(rel, warm, schedule=sched,
                                   partition_ratio=pr, agg_ratio=ar)
-                log(f"  warm-up {scheme}: phases "
-                    f"{ {k: round(v * 1e3, 3) for k, v in t.phase_s.items()} }"
-                    " ms")
+                log(f"  warm-up {scheme}: phases {phase_ms(t)} ms")
         for vname, vals in value_sets.items():
             exp = group_oracle(keys, vals)
             tvals = torch.from_numpy(vals).to(dev)
@@ -365,7 +409,7 @@ def run_groupby(dev) -> dict:
                 counts = rk.launch_counts()
                 what = f"groupby {scheme} n={n} values={vname}"
                 log(f"  {what}: schedule {sched}, phases "
-                    f"{ {k: round(v * 1e3, 3) for k, v in t.phase_s.items()} }"
+                    f"{phase_ms(t)}"
                     f" ms, merge {t.merge_s * 1e3:.3f} ms, "
                     f"{res.num_groups} groups, launches {counts}")
                 need = (("seg_agg",) if sched is None else
@@ -383,6 +427,173 @@ def run_groupby(dev) -> dict:
             log(f"  GPU_ONLY_PART agg-phase steps (ms, CUDA events): {steps}")
             out["agg_steps_ms"] = steps
     return out
+
+
+def check_probe_kernel(dev) -> dict[str, int]:
+    """Phases 2-3, continued: kernel F against ``probe_plain``, bit for
+    bit, over ``GRID_PROBE``."""
+    limit = pprobe.max_shared_keys()
+    err = 0
+    for p, k, m in GRID_PROBE:
+        tk, tr, pk = random_layout(p, k, m, seed=p + k, device=dev)
+        got = pprobe.probe(tk, tr, pk)
+        e = max_abs_diff(got, pprobe.probe_plain(tk, tr, pk))
+        torch.cuda.synchronize()
+        log(f"  P={p} K={k} M={m} ({'shared' if k <= limit else 'device'}"
+            f" memory, {int((got >= 0).sum())} hits): F err={e}")
+        assert e == 0, ("partitioned_probe", p, k, m, e)
+        err = max(err, e)
+    assert GRID_PROBE[-1][1] > limit, ("no row past shared memory", limit)
+    return {"partitioned_probe": err}
+
+
+def probe_pairs(qr: torch.Tensor, rid: torch.Tensor) -> np.ndarray:
+    """Sorted (probe rid, match rid) pairs of the matched probe slots."""
+    hit = rid >= 0
+    pairs = torch.stack([qr[hit], rid[hit]], 1).cpu().numpy()
+    pairs = pairs.astype(np.int64)
+    return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+
+
+def run_probe_join(dev, n: int = N_MAIN) -> dict:
+    """Phase 7: the partitioned probe join, unique(n, seed 1) x
+    uniform(n, seed 2) at 13 bits: ``build_partitioned_table`` and
+    ``probe`` each timed with CUDA events after one warm-up, the pairs
+    verified against the join oracle."""
+    build = unique_relation(n, seed=1, device=dev)
+    probe = uniform_relation(n, seed=2, device=dev)
+    exp = join_oracle(build, probe)
+    pops.probe(*pops.build_partitioned_table(
+        build, probe, total_bits=PROBE_BITS)[:3])          # warm-up
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    layout = pops.build_partitioned_table(build, probe,
+                                          total_bits=PROBE_BITS)
+    ev[1].record()
+    rid = pops.probe(*layout[:3])
+    ev[2].record()
+    ev[2].synchronize()
+    counts = rk.launch_counts()
+    out = {"n": n, "total_bits": PROBE_BITS,
+           "caps": [layout[0].shape[1], layout[2].shape[1]],
+           "build_ms": ev[0].elapsed_time(ev[1]),
+           "probe_ms": ev[1].elapsed_time(ev[2]), "launches": counts}
+    log(f"  layout P={1 << PROBE_BITS} K={out['caps'][0]} "
+        f"M={out['caps'][1]}: build_partitioned_table "
+        f"{out['build_ms']:.3f} ms, probe {out['probe_ms']:.3f} ms "
+        f"(CUDA events), launches {counts}")
+    for name in ("hash_bucket", "radix_hist", "partitioned_probe"):
+        assert counts[name] > 0, f"partitioned probe join never launched {name}"
+    got = probe_pairs(layout[3], rid)
+    assert got.shape == exp.shape and np.array_equal(got, exp), \
+        "partitioned probe join"
+    log(f"  partitioned probe join {n} x {n}: {len(exp)} matches, "
+        "verified against the oracle")
+    return out
+
+
+def run_shj(dev, n_main: int = N_MAIN, n_dd: int = N_DD) -> dict:
+    """Phase 8: the co-processed SHJ (C = host CPU, G = the card), every
+    run verified against the join oracle or the variant oracle."""
+    cp = CoProcessor(c_device="cpu", g_device=dev)
+    cp_pcie = CoProcessor(c_device="cpu", g_device=dev, link=PCIE_LINK,
+                          discrete=True)
+    out = {}
+
+    def check(what, res, t, exp, counts, needs_card):
+        log(f"  {what}: phases {phase_ms(t)} ms, merge "
+            f"{t.merge_s * 1e3:.3f} ms, transfer {t.transfer_bytes} B "
+            f"({t.transfer_s * 1e3:.3f} ms emulated), launches {counts}")
+        if needs_card:
+            assert counts["hash_bucket"] > 0, f"{what} never launched D"
+        else:   # the whole series ran on the host
+            assert not any(counts.values()), (what, counts)
+        verify(res, exp, what)
+        out[what] = {"phase_ms": phase_ms(t), "merge_ms": t.merge_s * 1e3,
+                     "transfer_bytes": t.transfer_bytes, "launches": counts}
+
+    for n in (n_main, n_dd):
+        build = uniform_relation(n, seed=1, device=dev)
+        probe = uniform_relation(n, seed=2, device=dev)
+        exp = uniform_oracle(n)
+        # num_buckets n/4 and max_out 2n + matches, as
+        # examples/coprocess_join.py sizes them.
+        kw = dict(num_buckets=n // 4, max_out=2 * n + len(exp))
+        if n == n_main:
+            runs = [("GPU_ONLY", cp, [0.0] * 4, [0.0] * 4, "shared")]
+            cp.shj(build, probe, build_ratios=[0.0] * 4,
+                   probe_ratios=[0.0] * 4, **kw)                # warm-up
+        else:
+            runs = [(name, cp, br, pr, mode)
+                    for name, br, pr in (
+                        ("CPU_ONLY", [1.0] * 4, [1.0] * 4),
+                        ("DD", [0.25] * 4, [0.42] * 4),
+                        ("PL", [0.0, 0.25, 0.5, 0.25],
+                         [0.0, 0.25, 0.75, 0.25]))
+                    for mode in ("shared", "separate")]
+            runs.append(("DD_PCIE", cp_pcie, [0.25] * 4, [0.42] * 4,
+                         "separate"))
+        for name, c, br, pr, mode in runs:
+            torch.cuda.synchronize()
+            rk.reset_launch_counts()
+            res, t = c.shj(build, probe, build_ratios=br, probe_ratios=pr,
+                           table_mode=mode, **kw)
+            counts = rk.launch_counts()
+            check(f"shj {name} {mode} n={n}", res, t, exp, counts,
+                  name != "CPU_ONLY")
+        if n == n_dd:
+            torch.cuda.synchronize()
+            rk.reset_launch_counts()
+            res, t, ratios = cp.basic_unit_shj(build, probe, chunk=n // 16,
+                                               **kw)
+            counts = rk.launch_counts()
+            assert all(0.0 <= r <= 1.0 for r in ratios.values()), ratios
+            log(f"  basic_unit_shj chunk={n // 16}: C ratios {ratios}")
+            check(f"basic_unit_shj n={n}", res, t, exp, counts, True)
+        # Variants against one table from build_table.
+        ratios = [0.0] * 4 if n == n_main else [0.25] * 4
+        table, _ = cp.build_table(build, num_buckets=kw["num_buckets"],
+                                  ratios=ratios)
+        for kind in ("semi", "anti", "left_outer"):
+            vexp = jv.join_variant_oracle(build, probe, kind)
+            pr = [0.0] * 4 if n == n_main else [0.42] * 4
+            torch.cuda.synchronize()
+            rk.reset_launch_counts()
+            res, t = jv.probe_table_variant(cp, probe, table, kind=kind,
+                                            max_out=kw["max_out"],
+                                            ratios=pr)
+            counts = rk.launch_counts()
+            check(f"probe_table_variant {kind} "
+                  f"{'GPU_ONLY' if n == n_main else 'DD'} n={n}", res, t,
+                  vexp, counts, True)
+    return out
+
+
+def time_probe_kernel(dev) -> dict:
+    """Phase 6, continued: F at path F's shape (2^24 x 2^24 at 13 bits),
+    beside its bytes bound, ``probe_plain`` and the library composite
+    (batched ``torch.searchsorted`` + gathers, ``probe_ref``)."""
+    build = unique_relation(N_MAIN, seed=1, device=dev)
+    probe = uniform_relation(N_MAIN, seed=2, device=dev)
+    tk, tr, qk, _ = pops.build_partitioned_table(build, probe,
+                                                 total_bits=PROBE_BITS)
+    p, k = tk.shape
+    m = qk.shape[1]
+    hits = int((pprobe.probe(tk, tr, qk) >= 0).sum())
+    row = {
+        "shape": f"P={p}, K={k}, M={m}, {hits} hits",
+        "ms": cuda_ms(lambda: pprobe.probe(tk, tr, qk)),
+        "plain_ms": cuda_ms(lambda: pprobe.probe_plain(tk, tr, qk)),
+        "library_ms": cuda_ms(lambda: probe_ref(tk, tr, qk)),
+        "library": "composite: batched torch.searchsorted (uint32 order in "
+                   "int64) + 2 torch.gather (probe_ref)",
+        # Keys and probe keys read once, the match rids written, one rid
+        # read per hit.
+        "bound_ms": (p * k + 2 * p * m + hits) * 4 / HBM_BYTES_PER_S * 1e3}
+    log(f"  partitioned_probe: {row}")
+    return {"partitioned_probe": row}
 
 
 def library_seg_agg(gid: torch.Tensor, val: torch.Tensor, slots: int):
@@ -489,7 +700,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -499,28 +709,44 @@ def main() -> int:
     build_all()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s")
 
-    log("[2-3] kernels A-E against their plain versions (bit-exact)")
+    log_phase("[2-3] kernels A-F against their plain versions (bit-exact)")
     err = check_kernels(dev)
     err.update(check_group_kernels(dev))
+    err.update(check_probe_kernel(dev))
 
-    log("[4] main path: phj_join 2^24 x 2^24")
+    log_phase("[4] main path: phj_join 2^24 x 2^24")
     main_path = run_main_path(dev)
 
-    log("[5] CoProcessor.phj")
+    log_phase("[5] CoProcessor.phj")
     run_coprocessor(dev)
 
-    log("[5b] main path: CoProcessor.groupby")
+    log_phase("[5b] main path: CoProcessor.groupby")
     groupby = run_groupby(dev)
 
-    log("[6] kernel times at the main paths' shapes")
+    log_phase("[7] main path: partitioned probe join 2^24 x 2^24")
+    probe_join = run_probe_join(dev)
+
+    log_phase("[8] main path: co-processed SHJ and join variants")
+    shj = run_shj(dev)
+
+    log_phase("[6] kernel times at the main paths' shapes")
     times = time_kernels(dev, main_path["schedule"])
-    group_times = time_group_kernels(dev)
+    other_times = time_group_kernels(dev)
+    other_times.update(time_probe_kernel(dev))
 
     # Launches: A and B from phj_join (slice 1's path), C, D and E from
-    # the GPU_ONLY partitioned group-by at 2^24, the path that added them.
+    # the GPU_ONLY partitioned group-by at 2^24, the path that added them,
+    # F from the partitioned probe join.
     by_path = {"phj_join": main_path["launches"],
                "groupby_gpu_only_partitioned":
-                   groupby["GPU_ONLY_PART/full"]["launches"]}
+                   groupby["GPU_ONLY_PART/full"]["launches"],
+               "partitioned_probe_join": probe_join["launches"],
+               "shj_gpu_only":
+                   shj[f"shj GPU_ONLY shared n={N_MAIN}"]["launches"]}
+    path_of = {"seg_agg": "groupby_gpu_only_partitioned",
+               "hash_bucket": "groupby_gpu_only_partitioned",
+               "radix_hist": "groupby_gpu_only_partitioned",
+               "partitioned_probe": "partitioned_probe_join"}
     record = []
     for name, meta in KERNELS.items():
         if name in times:
@@ -530,8 +756,8 @@ def main() -> int:
             row["per_pass"] = times[name]
             path = "phj_join"
         else:
-            row = group_times[name]
-            path = "groupby_gpu_only_partitioned"
+            row = other_times[name]
+            path = path_of[name]
         record.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
@@ -539,7 +765,7 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err[name], "bit_exact": err[name] == 0,
             "bound_by": "bytes", **row})
-    log(f"  whole script {time.perf_counter() - t_start:.1f} s")
+    log(f"  whole script {time.perf_counter() - T_START:.1f} s")
     log(smi)
     print(json.dumps({"kernels": record}))
     # The run used one device, whatever the host has.

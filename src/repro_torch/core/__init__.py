@@ -5,7 +5,7 @@
   * dense bucketed hash table        : ``hash_table``
   * fine-grained steps (SHJ/PHJ)     : ``steps``, ``shj``, ``phj``
   * radix partitioning               : ``partition``
-  * the PHJ two-group executor       : ``coprocess``
+  * the SHJ / PHJ two-group executor : ``coprocess``
   * cost model, pass planner, calibration
   * state exchange with the JAX package (NumPy only) : ``interop``
 """

@@ -1,22 +1,39 @@
-"""Two-group co-processing executor: the PHJ schemes (§3.2).
+"""Two-group co-processing executor: the SHJ and PHJ schemes (§3.2).
 
-Counterpart of the PHJ half of ``repro/core/coprocess.py``.  The paper's
-CPU-GPU pair is a C group on the host CPU and a G group on the card
-(``c_device="cpu"``, ``g_device="cuda:0"``); the JAX package emulates it
-with two groups of one backend.  Both groups may be given the same
-device, as tests do with ``"cpu"``.
+Counterpart of ``repro/core/coprocess.py``.  The paper's CPU-GPU pair is a
+C group on the host CPU and a G group on the card (``c_device="cpu"``,
+``g_device="cuda:0"``); the JAX package emulates it with two groups of one
+backend.  Both groups may be given the same device, as tests do with
+``"cpu"``.  The C share of every step runs the kernels' plain versions on
+the host; the G share runs the Hopper kernels.
+
+Schemes:
+  * CPU_ONLY / GPU_ONLY: the whole series on one group.
+  * OL: per-step 0/1 assignment.
+  * DD: one ratio for all steps of a phase; separate tables need a merge.
+  * PL: per-step ratios.  ``shj`` cuts each phase at its first step's
+    ratio, as the JAX package does.
+  * BASIC_UNIT (``basic_unit_shj``): the appendix's dynamic chunk
+    scheduling.
+
+Build-table modes (§3.3) of ``shj`` / ``build_table``:
+  * separate: each group builds a partial table on its tuple share; the C
+    group merges them (the paper's Fig. 3 merge).
+  * shared: bucket-range ownership split between the groups; tuples move
+    to their owner, and the two ranges concatenate into one table on G.
 
 ``CoProcessor.phj`` splits the partition passes by ``partition_ratio``
 (the C share of each relation's tuples) and the join phase by
-``join_ratio`` (the C share of the partition pairs).  The C share runs the
-kernels' plain versions on the host; the G share runs kernels A and B.
+``join_ratio`` (the C share of the partition pairs).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import threading
 import time
+from functools import partial
 
 import torch
 
@@ -24,7 +41,7 @@ from . import hash_table as ht
 from .cost_model import LinkSpec, ZEROCOPY_LINK
 from .partition import partition_pass, radix_partition_scheduled
 from .phj import partitioned_join, resolve_schedule
-from .relation import Relation, radix_of, resolve_device
+from .relation import Relation, bucket_of, radix_of, resolve_device
 from .shj import concat_results
 
 
@@ -153,7 +170,7 @@ class DeviceGroup:
 
 
 class CoProcessor:
-    """Executes PHJ across a C group and a G group."""
+    """Executes SHJ and PHJ across a C group and a G group."""
 
     BUILD_PAD_KEY = -2   # sentinel keys: pads never match real (>=0) keys
     PROBE_PAD_KEY = -3
@@ -165,6 +182,9 @@ class CoProcessor:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.c = DeviceGroup("C", c_device)
         self.g = DeviceGroup("G", g_device)
+        # Per-group execution locks for concurrent callers (the engine's
+        # worker threads); acquire in fixed C-then-G order.
+        self.group_locks = {"C": threading.Lock(), "G": threading.Lock()}
         self.link = link
         self.discrete = discrete
         self.ratio_quantum = ratio_quantum
@@ -229,6 +249,234 @@ class CoProcessor:
         dev = self.g.device
         return Relation(torch.cat([p.rid.to(dev) for p in pieces]),
                         torch.cat([p.key.to(dev) for p in pieces]))
+
+    # ------------------------------------------------------------------
+    # SHJ under a scheme.
+    # ------------------------------------------------------------------
+    def shj(self, build_rel: Relation, probe_rel: Relation, *,
+            num_buckets: int, max_out: int, build_ratios, probe_ratios,
+            table_mode: str = "shared") -> tuple[ht.JoinResult, Timing]:
+        """Run SHJ with per-step ratios (len-4 each; DD = equal entries,
+        OL = 0/1 entries, CPU_ONLY = all 1, GPU_ONLY = all 0)."""
+        table, timing = self.build_table(build_rel, num_buckets=num_buckets,
+                                         ratios=build_ratios,
+                                         table_mode=table_mode)
+        result, timing = self.probe_table(probe_rel, table, max_out=max_out,
+                                          ratios=probe_ratios, timing=timing)
+        timing.wall_s = timing.phase_s["build"] + timing.phase_s["probe"]
+        return result, timing
+
+    def build_table(self, build_rel: Relation, *, num_buckets: int, ratios,
+                    table_mode: str = "shared",
+                    timing: Timing | None = None
+                    ) -> tuple[ht.HashTable, Timing]:
+        """Build phase only, returning the finished table (which the
+        engine's table cache keeps for later probes)."""
+        if table_mode not in ("shared", "separate"):
+            raise ValueError(f"table_mode must be 'shared' or 'separate': "
+                             f"{table_mode!r}")
+        timing = timing or Timing(tracer=self.tracer)
+        build_rel = self.pad_relation(build_rel, self.BUILD_PAD_KEY)
+        with timing.phase("build", sync=self.synchronize, n=build_rel.size):
+            table = self._build(build_rel, num_buckets, ratios, table_mode,
+                                timing)
+        return table, timing
+
+    def probe_table(self, probe_rel: Relation, table: ht.HashTable, *,
+                    max_out: int, ratios, timing: Timing | None = None,
+                    probe_fn=None, tag: str = "probe"
+                    ) -> tuple[ht.JoinResult, Timing]:
+        """Probe phase against an existing (possibly cached) table.
+
+        ``probe_fn(max_out)`` returns the per-group probe ``(rel, table) ->
+        JoinResult`` in place of ``probe_hash_table`` (the join variants of
+        ``repro_torch.ops.join_variants`` route through here); ``tag``
+        names the kernel family, as the JAX package's jit cache key does.
+        """
+        timing = timing or Timing(tracer=self.tracer)
+        probe_rel = self.pad_relation(probe_rel, self.PROBE_PAD_KEY)
+        with timing.phase("probe", sync=self.synchronize, n=probe_rel.size,
+                          tag=tag):
+            result = self._probe(probe_rel, table, max_out, ratios, timing,
+                                 probe_fn=probe_fn)
+        if not timing.wall_s:
+            timing.wall_s = timing.phase_s.get("build", 0.0) + \
+                timing.phase_s["probe"]
+        return result, timing
+
+    def _build(self, rel: Relation, num_buckets: int, ratios, table_mode,
+               timing: Timing) -> ht.HashTable:
+        n = rel.size
+        r1 = ratios[0]
+        cut = self._cut(n, r1)
+        if table_mode == "separate" and 0 < cut < n:
+            # Each group builds a partial table on its share; C merges.
+            rel_c = self.c.put_items(rel.take(0, cut))
+            rel_g = self.g.put_items(rel.take(cut, n))
+            if self.discrete:
+                self._bus_delay((n - cut) * 8, timing)
+            # G first, here and below: its launches return at once, so the
+            # card works while the host computes C's share.
+            part_g = self.g.launch(ht.build_hash_table)(rel_g, num_buckets)
+            part_c = self.c.launch(ht.build_hash_table)(rel_c, num_buckets)
+            self.synchronize()
+            tm = time.perf_counter()
+            if self.discrete:  # ship the partial table back over the bus
+                self._bus_delay(part_g.nbytes, timing)
+            table = self.c.launch(ht.merge_hash_tables)(
+                [part_c, self.c.put_shared(part_g)], num_buckets)
+            self.c.synchronize()
+            timing.merge_s = time.perf_counter() - tm
+            return table
+        # Shared table (or one group): bucket-range ownership.  C owns
+        # buckets [0, own_c); each group builds its range from the tuples
+        # it owns, and the ranges concatenate into ONE table (no merge).
+        own_c = self._cut(num_buckets, r1) if 0 < cut < n else \
+            (num_buckets if cut == n else 0)
+        if own_c in (0, num_buckets):
+            grp = self.c if own_c == num_buckets else self.g
+            if self.discrete and grp is self.g:
+                self._bus_delay(n * 8, timing)
+            return grp.launch(ht.build_hash_table)(grp.put_items(rel),
+                                                   num_buckets)
+        to_c = bucket_of(rel.key, num_buckets) < own_c
+        # Owners contiguous: a stable sort of an int8 flag (C first).
+        order = torch.sort((~to_c).to(torch.int8), stable=True).indices
+        n_c = int(to_c.sum())
+        srel = Relation(rel.rid[order], rel.key[order])
+        # Exchange: tuples cross groups to reach their owner (the discrete
+        # bus pays for the crossing part).
+        crossing = min(n_c, n - cut) + min(n - n_c, cut)
+        self._bus_delay(crossing * 8, timing)
+        n_c_pad = _round_up(max(n_c, 1), self.lcm)
+        n_g_pad = _round_up(max(n - n_c, 1), self.lcm)
+        rel_c = self.c.put_items(_pad_slice(srel, 0, n_c, n_c_pad,
+                                            self.BUILD_PAD_KEY))
+        rel_g = self.g.put_items(_pad_slice(srel, n_c, n, n_g_pad,
+                                            self.BUILD_PAD_KEY))
+        part_g = self.g.launch(ht.build_hash_table)(rel_g, num_buckets)
+        part_c = self.c.launch(ht.build_hash_table)(rel_c, num_buckets)
+        return _concat_bucket_ranges(self.g.put_shared(part_c), part_g,
+                                     own_c)
+
+    def _probe(self, rel: Relation, table: ht.HashTable, max_out: int,
+               ratios, timing: Timing, *, probe_fn=None) -> ht.JoinResult:
+        n = rel.size
+        cut = self._cut(n, ratios[0])
+        # The table goes to each group that probes (discrete: the G copy
+        # pays the bus once, with G's share of the probe tuples).
+        if self.discrete and cut < n:
+            self._bus_delay(table.nbytes + (n - cut) * 8, timing)
+        # Per-group result capacity: proportional to the tuple share, plus
+        # slack covering statistical fluctuation of the match density (a
+        # proportional cap with O(1) slack truncates skewed probes).
+        slack = max(64, max_out // 16)
+        max_c = max(1, _round_up(int(max_out * (cut / max(n, 1))), 8) + slack)
+        max_g = max(1, max_out - max_c + 2 * slack)
+
+        if probe_fn is None:
+            def probe_fn(mo):
+                return lambda r, t: ht.probe_hash_table(r, t, mo)
+
+        res = []   # C's result first, G's after
+        if cut < n:
+            res.append(self.g.launch(probe_fn(max_g))(
+                self.g.put_items(rel.take(cut, n)),
+                self.g.put_shared(table)))
+        if cut > 0:
+            res.insert(0, self.c.launch(probe_fn(max_c))(
+                self.c.put_items(rel.take(0, cut)),
+                self.c.put_shared(table)))
+        if len(res) == 1:
+            out = res[0]
+            if self.discrete:
+                self._bus_delay(int(out.count) * 8, timing)
+            if out.probe_rid.shape[0] > max_out:
+                # The per-group slack padded capacity past the caller's
+                # max_out; valid pairs are front-compacted, so a prefix
+                # keeps the first matches.
+                out = ht.JoinResult(out.probe_rid[:max_out],
+                                    out.build_rid[:max_out],
+                                    torch.clamp(out.count, max=max_out))
+            return out
+        if self.discrete:
+            self._bus_delay(int(res[1].count) * 8, timing)
+        return concat_results([self.c.put_shared(r) for r in res],
+                              max_out=max_out)
+
+    # ------------------------------------------------------------------
+    # Appendix A: BasicUnit, coarse-grained dynamic chunk scheduling.
+    # ------------------------------------------------------------------
+    def basic_unit_shj(self, build_rel: Relation, probe_rel: Relation, *,
+                       num_buckets: int, max_out: int, chunk: int = 4096
+                       ) -> tuple[ht.JoinResult, Timing, dict]:
+        """Chunks of tuples dynamically assigned to whichever group is free.
+
+        Greedy least-loaded assignment from one timed chunk per group (the
+        appendix's dynamic queue), then the assigned work.  Partial tables
+        merge, and outputs concatenate, in chunk order, so the result does
+        not depend on the schedule.  Returns the realized per-phase C
+        ratios (appendix Figs. 17/18)."""
+        timing = Timing()
+        build_rel = self.pad_relation(build_rel, self.BUILD_PAD_KEY)
+        probe_rel = self.pad_relation(probe_rel, self.PROBE_PAD_KEY)
+        chunk = _round_up(chunk, self.lcm)
+        groups = {"C": self.c, "G": self.g}
+        ratios = {}
+
+        def assign(n_items, t_c, t_g):
+            load_c = load_g = 0.0
+            sched = []
+            for _ in range(-(-n_items // chunk)):  # the dynamic queue
+                if load_c + t_c <= load_g + t_g:
+                    sched.append("C")
+                    load_c += t_c
+                else:
+                    sched.append("G")
+                    load_g += t_g
+            return sched
+
+        def run(rel, sentinel, fn):
+            """Time one chunk per group, then run every chunk on its
+            group (``fn(name)(chunk)``); returns the outputs in chunk
+            order and the C ratio."""
+            cal = rel.take(0, chunk)
+            sched = assign(rel.size, *(
+                _time_once(grp, fn(name), grp.put_items(cal))
+                for name, grp in groups.items()))
+            outs = []
+            for i, who in enumerate(sched):
+                lo = i * chunk
+                hi = min(rel.size, lo + chunk)
+                sl = _pad_slice(rel, lo, hi, chunk, sentinel)
+                outs.append(fn(who)(groups[who].put_items(sl)))
+            return outs, sched.count("C") / max(len(sched), 1)
+
+        t0 = time.perf_counter()
+        partials, ratios["build"] = run(
+            build_rel, self.BUILD_PAD_KEY,
+            lambda name: partial(groups[name].launch(ht.build_hash_table),
+                                 num_buckets=num_buckets))
+        table = self.c.launch(ht.merge_hash_tables)(
+            [self.c.put_shared(t) for t in partials], num_buckets)
+        self.synchronize()
+        t1 = time.perf_counter()
+        timing.phase_s["build"] = t1 - t0
+
+        mo = max(64, _round_up(max_out // max(1, probe_rel.size // chunk), 8)
+                 + 64)
+        tables = {name: grp.put_shared(table) for name, grp in groups.items()}
+        outs, ratios["probe"] = run(
+            probe_rel, self.PROBE_PAD_KEY,
+            lambda name: partial(groups[name].launch(ht.probe_hash_table),
+                                 table=tables[name], max_out=mo))
+        out = concat_results([self.c.put_shared(r) for r in outs],
+                             max_out=max_out)
+        self.synchronize()
+        t2 = time.perf_counter()
+        timing.phase_s["probe"] = t2 - t1
+        timing.wall_s = t2 - t0
+        return out, timing, ratios
 
     # ------------------------------------------------------------------
     # PHJ.
@@ -380,3 +628,51 @@ class CoProcessor:
             return results[0]
         return concat_results([self.c.put_shared(r) for r in results],
                               max_out=max_out)
+
+
+def _time_once(grp: DeviceGroup, fn, *args) -> float:
+    """Seconds of one call of ``fn`` on ``grp`` after one warm-up call,
+    synchronized on both sides."""
+    fn(*args)
+    grp.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    grp.synchronize()
+    return time.perf_counter() - t0
+
+
+def _pad_slice(rel: Relation, lo: int, hi: int, target: int,
+               sentinel: int) -> Relation:
+    """rel[lo:hi] padded with sentinel tuples up to ``target`` rows."""
+    rid, key = rel.rid[lo:hi], rel.key[lo:hi]
+    pad = target - (hi - lo)
+    if pad <= 0:
+        return Relation(rid, key)
+    dev = rel.device
+    return Relation(
+        torch.cat([rid, torch.full((pad,), ht.INVALID, dtype=torch.int32,
+                                   device=dev)]),
+        torch.cat([key, torch.full((pad,), sentinel, dtype=torch.int32,
+                                   device=dev)]))
+
+
+def _concat_bucket_ranges(part_c: ht.HashTable, part_g: ht.HashTable,
+                          own_c: int) -> ht.HashTable:
+    """Stitch two bucket-range tables (on one device) into one table.
+
+    C's table covers buckets [0, own_c) of the global space, G's covers
+    [own_c, B).  G's key and rid indices shift past C's padded capacity.
+    """
+    nk_c = part_c.ukeys.shape[0]
+    nr_c = part_c.rids.shape[0]
+    return ht.HashTable(
+        torch.cat([part_c.bucket_key_start[:own_c],
+                   part_g.bucket_key_start[own_c:] + nk_c]),
+        torch.cat([part_c.bucket_key_count[:own_c],
+                   part_g.bucket_key_count[own_c:]]),
+        torch.cat([part_c.ukeys, part_g.ukeys]),
+        torch.cat([part_c.key_rid_start, part_g.key_rid_start + nr_c]),
+        torch.cat([part_c.key_rid_count, part_g.key_rid_count]),
+        torch.cat([part_c.rids, part_g.rids]),
+        torch.cat([part_c.skeys, part_g.skeys]),
+        part_c.num_keys + part_g.num_keys)

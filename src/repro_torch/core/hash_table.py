@@ -60,8 +60,16 @@ class HashTable:
     def capacity(self) -> int:
         return int(self.rids.shape[0])
 
+    def _tensors(self):
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self._tensors())
+
     def to(self, device) -> "HashTable":
-        return HashTable(*(t.to(device) for t in dataclasses.astuple(self)))
+        # Not ``dataclasses.astuple``: it deep-copies every tensor first.
+        return HashTable(*(t.to(device) for t in self._tensors()))
 
 
 @dataclasses.dataclass
@@ -75,9 +83,9 @@ class JoinResult:
     def valid_pairs(self) -> np.ndarray:
         """Host-side (count, 2) array of valid pairs, sorted (for tests)."""
         c = int(self.count)
-        pairs = np.stack([self.probe_rid[:c].cpu().numpy(),
-                          self.build_rid[:c].cpu().numpy()], axis=1)
-        return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+        return sort_pairs(np.stack([self.probe_rid[:c].cpu().numpy(),
+                                    self.build_rid[:c].cpu().numpy()],
+                                   axis=1))
 
     def to(self, device) -> "JoinResult":
         return JoinResult(self.probe_rid.to(device),
@@ -258,8 +266,12 @@ def join_oracle(build: Relation, probe: Relation) -> np.ndarray:
     pr = probe.rid.cpu().numpy()
     order_b = np.argsort(bk, kind="stable")
     bk, br = bk[order_b], br[order_b]
-    lo = np.searchsorted(bk, pk, side="left")
-    hi = np.searchsorted(bk, pk, side="right")
+    # Searched in key order, which keeps the searches cache-friendly.
+    order_p = np.argsort(pk)
+    lo = np.empty(pk.shape[0], dtype=np.int64)
+    hi = np.empty(pk.shape[0], dtype=np.int64)
+    lo[order_p] = np.searchsorted(bk, pk[order_p], side="left")
+    hi[order_p] = np.searchsorted(bk, pk[order_p], side="right")
     counts = hi - lo
     rows = np.repeat(np.arange(pk.shape[0]), counts)
     first = np.cumsum(counts) - counts
@@ -267,4 +279,17 @@ def join_oracle(build: Relation, probe: Relation) -> np.ndarray:
     out = np.empty((rows.shape[0], 2), dtype=np.int64)
     out[:, 0] = pr[rows]
     out[:, 1] = br[lo[rows] + within]
-    return out[np.lexsort((out[:, 1], out[:, 0]))]
+    return sort_pairs(out)
+
+
+def sort_pairs(pairs: np.ndarray) -> np.ndarray:
+    """(n, 2) pairs of int32 values sorted by (first, second).
+
+    The order of ``np.lexsort((pairs[:, 1], pairs[:, 0]))``, from one sort
+    of a combined int64 key: an order of magnitude faster at 2^24 pairs.
+    """
+    key = pairs[:, 0].astype(np.int64) * (1 << 32) + \
+        (pairs[:, 1].astype(np.int64) + (1 << 31))
+    key.sort()
+    out = np.stack([key >> 32, (key & 0xFFFFFFFF) - (1 << 31)], axis=1)
+    return out.astype(pairs.dtype, copy=False)

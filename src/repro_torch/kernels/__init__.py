@@ -7,9 +7,11 @@ from .agg import agg as _agg
 from .hash import hash as _hash
 from .partition_hist import (fused as _fused, partition_hist as _hist,
                              reorder as _reorder)
+from .probe import probe as _probe
 
 _COUNTED = {"partition_hist_fused": _fused, "radix_scatter": _reorder,
-            "seg_agg": _agg, "hash_bucket": _hash, "radix_hist": _hist}
+            "seg_agg": _agg, "hash_bucket": _hash, "radix_hist": _hist,
+            "partitioned_probe": _probe}
 
 
 def launch_counts() -> dict[str, int]:

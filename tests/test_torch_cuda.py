@@ -6,13 +6,16 @@ import pytest
 import torch
 
 import repro_torch.core as tc
-import repro_torch.ops  # noqa: F401  (attaches CoProcessor.groupby)
+import repro_torch.ops as tops  # (attaches CoProcessor.groupby)
 from repro_torch.core import interop
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.agg import agg
 from repro_torch.kernels.hash import hash as hsh
 from repro_torch.kernels.partition_hist import (fused, partition_hist,
                                                 reorder)
+from repro_torch.kernels.probe import ops as pops
+from repro_torch.kernels.probe import probe as pprobe
+from repro_torch.kernels.probe.ref import random_layout
 
 pytestmark = pytest.mark.cuda
 
@@ -70,7 +73,8 @@ def test_phj_join_on_card_equals_cpu(dev, kind):
     # E: the final headers' histogram, per relation.
     assert launch_counts() == {"partition_hist_fused": 2 * passes,
                                "radix_scatter": 2 * passes, "seg_agg": 0,
-                               "hash_bucket": 4, "radix_hist": 2}
+                               "hash_bucket": 4, "radix_hist": 2,
+                               "partitioned_probe": 0}
     for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
         assert np.array_equal(w, g)
 
@@ -164,3 +168,111 @@ def test_groupby_on_card_equals_cpu(dev, schedule, pr, ar, wrap32):
                                            "radix_scatter", "hash_bucket",
                                            "radix_hist"))
     assert t.phase_s["agg"] > 0
+
+
+@pytest.mark.parametrize("p,k,m", [(1, 8, 8), (16, 8, 300), (8192, 8, 128),
+                                   (1, 2304, 5000), (16, 2304, 2304),
+                                   (8192, 2304, 2304), (16, 32768, 4096),
+                                   (1, 1 << 20, 1 << 16)])
+def test_partitioned_probe_matches_plain_version(dev, p, k, m):
+    tk, tr, pk = random_layout(p, k, m, seed=p + k, device=dev)
+    got = pprobe.probe(tk, tr, pk)
+    assert torch.equal(got, pprobe.probe_plain(tk, tr, pk))
+    if k == 1 << 20:          # longer than shared memory holds
+        assert k > pprobe.max_shared_keys()
+
+
+def test_probe_wrapper_rejects_bad_inputs(dev):
+    t = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        pprobe.probe(t.to(torch.int64), t, t)
+    with pytest.raises(ValueError):
+        pprobe.probe(t.t().contiguous().t(), t, t)
+    with pytest.raises(ValueError):
+        pprobe.probe(t, t, t.cpu())
+
+
+@pytest.mark.parametrize("n,bits", [(1 << 12, 4), (1 << 16, 7)])
+def test_partitioned_probe_join_on_card_equals_cpu(dev, n, bits):
+    b = tc.unique_relation(n, seed=1, device="cpu")
+    p = tc.uniform_relation(2 * n, key_range=3 * n // 2, seed=2,
+                            device="cpu")
+    want = pops.build_partitioned_table(b, p, total_bits=bits)
+    reset_launch_counts()
+    got = pops.build_partitioned_table(b.to(dev), p.to(dev),
+                                       total_bits=bits)
+    rid = pops.probe(*got[:3])
+    counts = launch_counts()
+    assert counts["hash_bucket"] == 2 and counts["radix_hist"] == 2
+    assert counts["partitioned_probe"] == 1
+    for w, g in zip(want, got):
+        assert torch.equal(w, g.cpu())
+    assert torch.equal(pops.probe(*want[:3]), rid.cpu())
+
+
+SHJ_SCHEMES = {
+    "cpu_only": ([1.0] * 4, [1.0] * 4), "gpu_only": ([0.0] * 4, [0.0] * 4),
+    "ol": ([1.0] * 4, [0.0] * 4), "dd": ([0.25] * 4, [0.42] * 4),
+    "pl": ([0.0, 0.25, 0.5, 0.25], [0.0, 0.25, 0.75, 0.25])}
+
+
+def _shj_data(n=1 << 14):
+    b = tc.uniform_relation(n, seed=1, device="cpu")
+    p = tc.uniform_relation(n, seed=2, device="cpu")
+    return b, p, 2 * n + len(tc.join_oracle(b, p))
+
+
+@pytest.mark.parametrize("mode", ["shared", "separate"])
+@pytest.mark.parametrize("scheme", list(SHJ_SCHEMES))
+def test_shj_on_card_equals_cpu(dev, scheme, mode):
+    b, p, mo = _shj_data()
+    br, pr = SHJ_SCHEMES[scheme]
+    kw = dict(num_buckets=1 << 12, max_out=mo, build_ratios=br,
+              probe_ratios=pr, table_mode=mode)
+    want, wt = tc.CoProcessor("cpu", "cpu").shj(b, p, **kw)
+    reset_launch_counts()
+    got, t = tc.CoProcessor("cpu", dev).shj(b.to(dev), p.to(dev), **kw)
+    for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
+        assert np.array_equal(w, g)
+    assert t.transfer_bytes == wt.transfer_bytes
+    if scheme != "cpu_only":
+        assert launch_counts()["hash_bucket"] > 0
+
+
+def test_shj_discrete_and_basic_unit_on_card_equal_cpu(dev):
+    b, p, mo = _shj_data()
+    kw = dict(num_buckets=1 << 12, max_out=mo, build_ratios=[0.25] * 4,
+              probe_ratios=[0.42] * 4, table_mode="separate")
+    link = dict(link=tc.PCIE_LINK, discrete=True)
+    want, wt = tc.CoProcessor("cpu", "cpu", **link).shj(b, p, **kw)
+    got, t = tc.CoProcessor("cpu", dev, **link).shj(b.to(dev), p.to(dev),
+                                                    **kw)
+    for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
+        assert np.array_equal(w, g)
+    assert t.transfer_bytes == wt.transfer_bytes > 0
+    kw = dict(num_buckets=1 << 12, max_out=mo, chunk=1 << 12)
+    want, _, _ = tc.CoProcessor("cpu", "cpu").basic_unit_shj(b, p, **kw)
+    got, _, ratios = tc.CoProcessor("cpu", dev).basic_unit_shj(
+        b.to(dev), p.to(dev), **kw)
+    for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
+        assert np.array_equal(w, g)
+    assert all(0.0 <= r <= 1.0 for r in ratios.values())
+
+
+@pytest.mark.parametrize("kind", ["semi", "anti", "left_outer"])
+@pytest.mark.parametrize("ratio", [0.0, 0.5, 1.0])
+def test_join_variants_on_card_equal_cpu(dev, kind, ratio):
+    b, p, mo = _shj_data()
+    cpu, card = tc.CoProcessor("cpu", "cpu"), tc.CoProcessor("cpu", dev)
+    kw = dict(num_buckets=1 << 12, ratios=[0.0] * 4)
+    want_t, _ = cpu.build_table(b, **kw)
+    got_t, _ = card.build_table(b.to(dev), **kw)
+    for w, g in zip(interop.to_numpy(want_t), interop.to_numpy(got_t)):
+        assert np.array_equal(w, g)
+    kw = dict(kind=kind, max_out=mo, ratios=[ratio] * 4)
+    want, _ = tops.probe_table_variant(cpu, p, want_t, **kw)
+    got, _ = tops.probe_table_variant(card, p.to(dev), got_t, **kw)
+    for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
+        assert np.array_equal(w, g)
+    assert np.array_equal(got.valid_pairs(),
+                          tops.join_variant_oracle(b, p, kind))

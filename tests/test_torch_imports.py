@@ -22,8 +22,12 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert {"repro_torch.core.coprocess", "repro_torch.ops.groupby",
+            "repro_torch.ops.join_variants",
             "repro_torch.kernels.agg.agg", "repro_torch.kernels.hash.hash",
-            "repro_torch.kernels.partition_hist.partition_hist"} <= set(mods)
+            "repro_torch.kernels.partition_hist.partition_hist",
+            "repro_torch.kernels.probe.ops",
+            "repro_torch.kernels.probe.probe",
+            "repro_torch.kernels.probe.ref"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
