@@ -2,11 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-sm_90a, one process per source, all at once) and holds each kernel bit
-for bit against its plain PyTorch version at the main paths' shapes and
+Builds the port's eight CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+sm_90a, one process per source, all at once) and holds each integer kernel
+bit for bit against its plain PyTorch version at the main paths' shapes and
 at ragged and wide ones: A (n1+n2), B (n3), C (segmented aggregation),
-D (hash bucket) and E (radix histogram).  Then it drives the port's two
+D (hash bucket) and E (radix histogram).  Then it drives the port's
 main paths, each with the launch counts set to 0 just before it and read
 just after, and verifies each against a NumPy oracle:
 
@@ -22,8 +22,19 @@ just after, and verifies each against a NumPy oracle:
   ``basic_unit_shj`` at 2^22, and the semi / anti / left-outer probes of
   ``probe_table_variant`` (GPU_ONLY at 2^24, DD at 2^22).
 
+* the LM serving path: Zamba2-1.2B at full width and depth (38 layers,
+  d_model 2048, bf16, random weights from seed 0) through
+  ``ServeEngine.generate`` for 4 prompts x 2048 tokens + 32 new and
+  2 x 1000 + 16, with 6 launches of kernel G (flash attention) and 32 of
+  kernel H (SSD intra-chunk) per generate, all in the prefill; the decode
+  logits held against ``forward_train`` (which runs G and H) within
+  tests/test_archs.py's 0.06 relative limit.
+
 Kernel F (partitioned probe) is held against its plain version first,
-like A-E.  Then the script times each kernel at the main paths' shapes
+like A-E; G and H against theirs within tests/test_kernels.py's
+tolerances over their grids in float32 and bfloat16, and on one
+attention block's and one Mamba2 block's activations from the Zamba2
+prefill.  Then the script times each kernel at the main paths' shapes
 beside its bound, its plain version and one PyTorch library call (or a
 composite of them).
 
@@ -66,8 +77,18 @@ from repro_torch.kernels.probe.ref import (  # noqa: E402
     probe_ref, random_layout)
 from repro_torch.ops import groupby as gb  # noqa: E402
 from repro_torch.ops import join_variants as jv  # noqa: E402
+import repro_torch.layers.attention as lattn  # noqa: E402
+import repro_torch.layers.ssd as lssd  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
+from repro_torch.kernels.ssd import ssd as kssd  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serve.engine import (ServeEngine,  # noqa: E402
+                                      grow_cache, make_decode_step,
+                                      make_prefill_step)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
 N_MAIN = 1 << 24            # paper §5.1 default relation size
 N_DD = 1 << 22
 GRID_NS = (N_MAIN, 1_000_003, 4096)
@@ -98,7 +119,31 @@ KERNELS = {
     "partitioned_probe": {
         "source": "src/repro_torch/csrc/partitioned_probe.cu",
         "replaces": "src/repro/kernels/probe/probe.py:54"},
+    "flash_attn": {
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash_attn.py:65"},
+    "ssd_intra_chunk": {
+        "source": "src/repro_torch/csrc/ssd_intra_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:40"},
 }
+LM_ARCH = "zamba2_1_2b"     # the one config whose serving runs G and H
+# (batch, prompt, new tokens) of the two served batches: multiples of 128
+# and 256, then a ragged prompt (G's tail and ssd_chunked's padding).
+LM_BATCHES = ((4, 2048, 32), (2, 1000, 16))
+LM_REL_LIMIT = 0.06         # tests/test_archs.py:83
+# Kernel G's grid (B, Sq, Sk, H, KV, D, causal): tests/test_kernels.py:92-97,
+# Zamba2's prefill, a Qwen3-8B-shaped GQA case, D = 96 and a ragged length.
+GRID_G = ((2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
+          (2, 256, 256, 4, 4, 32, True), (1, 256, 256, 8, 2, 64, True),
+          (4, 2048, 2048, 32, 32, 64, True), (1, 2048, 2048, 32, 8, 128, True),
+          (1, 1024, 1024, 32, 32, 96, True), (1, 1000, 1000, 8, 2, 64, True))
+# Kernel H's grid (B, NC, Q, H, P, N): tests/test_kernels.py:114-116,
+# Zamba2's prefill, Mamba2-2.7B's state width and a ragged chunk.
+GRID_H = ((2, 3, 64, 4, 32, 16), (1, 2, 128, 8, 64, 64),
+          (1, 2, 128, 4, 64, 128), (4, 8, 256, 64, 64, 64),
+          (1, 4, 256, 80, 64, 128), (2, 1, 37, 64, 64, 64))
+TOL_G = {torch.float32: 3e-5, torch.bfloat16: 2e-2}   # test_kernels.py:109
+TOL_H = {torch.float32: 2e-4, torch.bfloat16: 3e-2}   # test_kernels.py:128
 PROBE_BITS = 13             # the planner's (7, 6) schedule at 2^24
 # (P, K, M) of kernel F's check: P in {1, 16, 2^13} x K in {8, 2304}, a
 # row past the 48 KB default of shared memory, and one longer than shared
@@ -696,6 +741,267 @@ def time_kernels(dev, sched) -> dict[str, list]:
     return out
 
 
+def close_err(got: torch.Tensor, want: torch.Tensor, tol: float,
+              what) -> float:
+    """Largest |got - want|; raises unless every element is within
+    ``tol + tol |want|`` (tests/test_kernels.py's assert_allclose)."""
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert bool(torch.isfinite(got).all()), (what, "non-finite output")
+    diff = (got - want).abs()
+    assert bool((diff <= tol + tol * want.abs()).all()), \
+        (what, float(diff.max()))
+    return float(diff.max())
+
+
+def g_inputs(shape, dtype, dev, seed: int):
+    b, sq, sk, h, kv, d, _ = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype),
+            torch.randn(b, sk, kv, d, generator=g, device=dev).to(dtype),
+            torch.randn(b, sk, kv, d, generator=g, device=dev).to(dtype))
+
+
+def h_inputs(shape, dtype, dev, seed: int):
+    bs, nc, q, h, p, n = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(bs, nc, q, h, p, generator=g, device=dev).to(dtype),
+            torch.rand(bs, nc, q, h, generator=g, device=dev) * 0.19 + 0.01,
+            torch.randn(bs, nc, q, n, generator=g, device=dev).to(dtype),
+            torch.randn(bs, nc, q, n, generator=g, device=dev).to(dtype),
+            -torch.exp(torch.randn(h, generator=g, device=dev) * 0.3))
+
+
+def check_lm_kernels(dev) -> dict[str, float]:
+    """Phase 9: kernels G and H against their plain versions over their
+    grids, in float32 (TF32 off) and in bfloat16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    err = {"flash_attn": 0.0, "ssd_intra_chunk": 0.0}
+    for dtype, tol in TOL_G.items():
+        for i, shape in enumerate(GRID_G):
+            q, k, v = g_inputs(shape, dtype, dev, seed=i)
+            kv, causal = shape[4], shape[6]
+            got = fa.flash_attention(q, k, v, num_kv_heads=kv, causal=causal)
+            want = fa.flash_attention_plain(q, k, v, num_kv_heads=kv,
+                                            causal=causal)
+            e = close_err(got, want, tol, ("flash_attn", shape, dtype))
+            err["flash_attn"] = max(err["flash_attn"], e)
+            log(f"  G {shape} {dtype}: max abs err {e:.3g} (tol {tol})")
+            del q, k, v, got, want
+    for dtype, tol in TOL_H.items():
+        for i, shape in enumerate(GRID_H):
+            args = h_inputs(shape, dtype, dev, seed=i)
+            got = kssd.ssd_intra_chunk(*args)
+            want = kssd.ssd_intra_chunk_plain(*args)
+            e = close_err(got, want, tol, ("ssd_intra_chunk", shape, dtype))
+            err["ssd_intra_chunk"] = max(err["ssd_intra_chunk"], e)
+            log(f"  H {shape} {dtype}: max abs err {e:.3g} (tol {tol})")
+    torch.cuda.synchronize()
+    return err
+
+
+class Capture:
+    """Records the inputs of the first call of a layer's kernel wrapper
+    while the prefill runs, and passes every call on unchanged."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.args = None
+
+    def __enter__(self):
+        def wrapper(*args, **kw):
+            if self.args is None:
+                self.args = ([a.clone() for a in args], dict(kw))
+            return self.fn(*args, **kw)
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def run_lm_serving(dev, cfg, batches=LM_BATCHES) -> dict:
+    """Phase 10: ``cfg`` (Zamba2-1.2B at full width and depth in the run
+    of ``main``; random weights from seed 0) served through
+    ``ServeEngine.generate`` for each (batch, prompt, new) of ``batches``;
+    launch
+    counts per generate (G and H only in the prefill), decode logits
+    against ``forward_train`` (G and H) on the generated sequences, G and
+    H against their plain versions on the prefill's own activations, and
+    CUDA-event times."""
+    layers = cfg.pattern_unit * cfg.num_units + cfg.tail
+    n_attn, n_mamba = layers.count("A") + layers.count("D"), layers.count("M")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"  {cfg.name}: {cfg.num_layers} layers ({layers}), {n_params} "
+        f"parameters, initialised in {time.perf_counter() - t0:.1f} s")
+    out = {"arch": cfg.name, "params": n_params, "batches": {}}
+    for bi, (batch, plen, new) in enumerate(batches):
+        rng = np.random.default_rng(bi)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, plen), dtype=np.int32)).to(dev)
+        engine = ServeEngine(cfg, params, max_seq=plen + new)
+        what = f"{batch} x {plen} + {new}"
+        if bi == 0:   # warm-up, with the activations of one G and one H
+            with Capture(lattn, "flash_attention") as cg, \
+                    Capture(lssd, "ssd_intra_chunk") as ch:
+                engine.generate(prompts, new)
+        else:
+            engine.generate(prompts, new)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rk.reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        tokens, logits = engine.generate(prompts, new, return_logits=True)
+        ev[1].record()
+        ev[1].synchronize()
+        counts = rk.launch_counts()
+        gen_ms = ev[0].elapsed_time(ev[1])
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"  generate {what}: {gen_ms:.3f} ms, launches {counts}, peak "
+            f"{peak} B")
+        assert counts["flash_attn"] == n_attn, counts
+        assert counts["ssd_intra_chunk"] == n_mamba, counts
+        assert sum(counts.values()) == n_attn + n_mamba, counts
+        assert tokens.shape == (batch, plen + new)
+        assert torch.equal(tokens[:, :plen].cpu(), prompts.cpu())
+        assert bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+        assert bool(torch.isfinite(logits.float()).all())
+
+        # Decode (plain attention, recurrent SSD) against forward_train
+        # (G and H) at every generated position.
+        rk.reset_launch_counts()
+        full, _ = tfm.forward_train(params, cfg, tokens[:, :-1])
+        fwd_counts = rk.launch_counts()
+        assert fwd_counts["flash_attn"] == n_attn, fwd_counts
+        assert fwd_counts["ssd_intra_chunk"] == n_mamba, fwd_counts
+        ref = full[:, plen - 1:].float()[..., :cfg.vocab_size]
+        got = logits.float()[..., :cfg.vocab_size]
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        log(f"  decode vs forward_train logits: max|d|/max|logits| "
+            f"{rel:.4g} (limit {LM_REL_LIMIT}); argmax agreement {agree}")
+        assert rel < LM_REL_LIMIT, (what, rel)
+        del full, ref, got
+
+        # The two steps on their own, each timed with CUDA events.
+        prefill = make_prefill_step(cfg)
+        step = make_decode_step(cfg)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        plog, cache = prefill(params, {"tokens": prompts})
+        ev[1].record()
+        cache = grow_cache(cfg, cache, batch, plen + new, dev)
+        tok = torch.argmax(plog, -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        rk.reset_launch_counts()
+        ev[2].record()
+        for n in range(plen, plen + new - 1):
+            tok, _, cache = step(params, cache, tok, n)
+        ev[3].record()
+        ev[3].synchronize()
+        assert not any(rk.launch_counts().values()), rk.launch_counts()
+        prefill_ms = ev[0].elapsed_time(ev[1])
+        decode_ms = ev[2].elapsed_time(ev[3]) / (new - 1)
+        row = {"batch": batch, "prompt": plen, "new": new,
+               "generate_ms": gen_ms, "prefill_ms": prefill_ms,
+               "decode_ms_per_step": decode_ms,
+               "tokens_per_s": batch * new / (gen_ms / 1e3),
+               "decode_tokens_per_s": batch / (decode_ms / 1e3),
+               "peak_bytes": peak, "rel_logits": rel,
+               "argmax_agreement": agree, "launches": counts}
+        log(f"  {what}: prefill {prefill_ms:.3f} ms, decode "
+            f"{decode_ms:.3f} ms per step, {row['tokens_per_s']:.1f} tok/s "
+            "over generate")
+        out["batches"][what] = row
+        del cache, tokens, logits
+
+    # G and H on the prefill's own activations (first attention block,
+    # first Mamba2 block of the 4 x 2048 warm-up prefill).
+    (q, k, v), kw = cg.args
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    eg = close_err(got, want, TOL_G[q.dtype], "G on Zamba2 activations")
+    args, _ = ch.args
+    got = kssd.ssd_intra_chunk(*args)
+    want = kssd.ssd_intra_chunk_plain(*args)
+    eh = close_err(got, want, TOL_H[args[0].dtype],
+                   "H on Zamba2 activations")
+    log(f"  real activations: G q {tuple(q.shape)} err {eg:.3g}; H x "
+        f"{tuple(args[0].shape)} err {eh:.3g}")
+    out["activation_err"] = {"flash_attn": eg, "ssd_intra_chunk": eh}
+    return out
+
+
+def library_ssd(x, dt, b, c, a):
+    """The composite yardstick for H: two batched torch.matmul (C B^T and
+    W X) around the decay mask, in float32; Y comes out (B, NC, H, Q, P)."""
+    dth = dt.permute(0, 1, 3, 2)                          # (B,NC,H,Q)
+    cs = torch.cumsum(dth * a[:, None], dim=-1)
+    q = x.shape[2]
+    tril = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    decay = torch.exp(cs[..., :, None] - cs[..., None, :]).masked_fill(
+        ~tril, 0.0)
+    g = torch.matmul(c.float(), b.float().transpose(-1, -2))
+    w = g[:, :, None] * decay * dth[..., None, :]
+    return torch.matmul(w, x.float().permute(0, 1, 3, 2, 4))
+
+
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """Least milliseconds for the work, and what bounds it."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def time_lm_kernels(dev) -> dict[str, dict]:
+    """Phase 6, continued: G and H at Zamba2's prefill shapes (4 x 2048,
+    bf16), beside their bounds, plain versions and library calls."""
+    b, s, h, d = 4, 2048, 32, 64
+    q, k, v = g_inputs((b, s, s, h, h, d, True), torch.bfloat16, dev, 99)
+    pairs = s * (s + 1) // 2                 # causal (i, j), j <= i
+    bms, bby = bound(4.0 * b * h * pairs * d, 2 * 4 * b * s * h * d,
+                     BF16_FLOPS)
+    out = {"flash_attn": {
+        "shape": f"q/k/v ({b}, {s}, {h}, {d}) bf16, causal",
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, num_kv_heads=h)),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, num_kv_heads=h), reps=5, warmup=1),
+        "library_ms": cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True)),
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "(is_causal=True) on (B, H, S, D) views",
+        "bound_ms": bms, "bound_by": bby}}
+    del q, k, v
+    bs, nc, cq, hh, p, n = 4, 8, 256, 64, 64, 64
+    args = h_inputs((bs, nc, cq, hh, p, n), torch.bfloat16, dev, 98)
+    tri = cq * (cq + 1) // 2
+    rows = bs * nc * cq
+    bms, bby = bound(2.0 * bs * nc * tri * (n + hh * p),
+                     rows * (hh * p * 2 + hh * 4 + 2 * n * 2 + hh * p * 4)
+                     + hh * 4, BF16_FLOPS)
+    out["ssd_intra_chunk"] = {
+        "shape": f"x ({bs}, {nc}, {cq}, {hh}, {p}) bf16, N {n}",
+        "ms": cuda_ms(lambda: kssd.ssd_intra_chunk(*args)),
+        "plain_ms": cuda_ms(lambda: kssd.ssd_intra_chunk_plain(*args),
+                            reps=5, warmup=1),
+        "library_ms": cuda_ms(lambda: library_ssd(*args)),
+        "library": "composite: torch.matmul C B^T + decay mask + "
+                   "torch.matmul W X, float32",
+        "bound_ms": bms, "bound_by": bby}
+    for name, row in out.items():
+        log(f"  {name}: {row}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -729,10 +1035,20 @@ def main() -> int:
     log_phase("[8] main path: co-processed SHJ and join variants")
     shj = run_shj(dev)
 
+    log_phase("[9] kernels G and H against their plain versions")
+    err.update(check_lm_kernels(dev))
+
+    log_phase(f"[10] main path: LM serving, {LM_ARCH} at full width")
+    cfg = get_config(LM_ARCH)
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.d_ff,
+            cfg.dtype) == (38, 2048, 32, 8192, "bfloat16"), cfg
+    lm = run_lm_serving(dev, cfg)
+
     log_phase("[6] kernel times at the main paths' shapes")
     times = time_kernels(dev, main_path["schedule"])
     other_times = time_group_kernels(dev)
     other_times.update(time_probe_kernel(dev))
+    other_times.update(time_lm_kernels(dev))
 
     # Launches: A and B from phj_join (slice 1's path), C, D and E from
     # the GPU_ONLY partitioned group-by at 2^24, the path that added them,
@@ -742,11 +1058,14 @@ def main() -> int:
                    groupby["GPU_ONLY_PART/full"]["launches"],
                "partitioned_probe_join": probe_join["launches"],
                "shj_gpu_only":
-                   shj[f"shj GPU_ONLY shared n={N_MAIN}"]["launches"]}
+                   shj[f"shj GPU_ONLY shared n={N_MAIN}"]["launches"],
+               "lm_generate": next(iter(lm["batches"].values()))[
+                   "launches"]}
     path_of = {"seg_agg": "groupby_gpu_only_partitioned",
                "hash_bucket": "groupby_gpu_only_partitioned",
                "radix_hist": "groupby_gpu_only_partitioned",
-               "partitioned_probe": "partitioned_probe_join"}
+               "partitioned_probe": "partitioned_probe_join",
+               "flash_attn": "lm_generate", "ssd_intra_chunk": "lm_generate"}
     record = []
     for name, meta in KERNELS.items():
         if name in times:
@@ -765,12 +1084,17 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err[name], "bit_exact": err[name] == 0,
             "bound_by": "bytes", **row})
+    for b in lm["batches"].values():
+        log(f"  LM {b['batch']} x {b['prompt']} + {b['new']}: prefill "
+            f"{b['prefill_ms']:.3f} ms, decode {b['decode_ms_per_step']:.3f}"
+            f" ms/step, {b['tokens_per_s']:.1f} tok/s, peak "
+            f"{b['peak_bytes'] / 2**30:.2f} GiB")
     log(f"  whole script {time.perf_counter() - T_START:.1f} s")
     log(smi)
     print(json.dumps({"kernels": record}))
-    # The run used one device, whatever the host has.
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": 1}}))
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -3,8 +3,15 @@
 ``to_numpy`` flattens a ``Relation``, ``HashTable``, ``JoinResult`` or
 ``Partitions`` into its arrays in field order, which is the order of the
 JAX package's pytree leaves (``jax.tree.leaves``) for the same class.
-``from_numpy`` builds the port's object back from such arrays.  Only
-NumPy crosses, so this module never imports JAX.
+``from_numpy`` builds the port's object back from such arrays.
+
+The LM's weights and serving caches cross as the JAX package's trees of
+NumPy arrays (``unit`` stacked along its leading axis):
+``lm_params_from_numpy`` and ``lm_cache_from_numpy`` fill the port's
+modules and caches.  bfloat16
+leaves cross as float32 arrays (lossless) and are cast back to the
+spec's dtype, which keeps ``ml_dtypes`` out of the port.  Only NumPy
+crosses, so this module never imports JAX.
 """
 from __future__ import annotations
 
@@ -44,3 +51,48 @@ def from_numpy(cls, arrays, device="cpu"):
     if cls is Partitions:
         return Partitions(Relation(ts[0], ts[1]), ts[2], ts[3])
     return cls(*ts)
+
+
+def _tensors_like(specs: dict, tree: dict, model_dtype: str, device) -> dict:
+    """``tree``'s arrays as tensors of the specs' shapes and dtypes."""
+    from ..models.params import ParamSpec, torch_dtype
+
+    if set(specs) != set(tree):
+        raise ValueError(f"keys {sorted(tree)} differ from the specs' "
+                         f"{sorted(specs)}")
+    out = {}
+    for k, spec in specs.items():
+        if not isinstance(spec, ParamSpec):
+            out[k] = _tensors_like(spec, tree[k], model_dtype, device)
+            continue
+        a = np.asarray(tree[k])
+        if tuple(a.shape) != spec.shape:
+            raise ValueError(f"{k}: shape {a.shape}, spec {spec.shape}")
+        dt = torch_dtype(spec.dtype or model_dtype)
+        out[k] = torch.from_numpy(np.array(a)).to(device, dt)
+    return out
+
+
+def lm_params_from_numpy(cfg, tree: dict, device="cpu"):
+    """The port's ``LM`` holding the JAX package's parameters ``tree``
+    (``jax.tree.map(np.asarray, params)``, bf16 leaves as float32)."""
+    from ..models import transformer as tfm
+
+    return tfm.lm_from_tree(cfg, _tensors_like(tfm.param_specs(cfg), tree,
+                                               cfg.dtype, device))
+
+
+def lm_cache_from_numpy(cfg, tree: dict, device="cpu") -> dict:
+    """The port's cache from a JAX serving cache of the same layout."""
+    from ..models import transformer as tfm
+
+    # (block, index of its batch axis): stacked unit leaves lead with n.
+    blocks = [(b, 1) for b in tree["unit"].values()] + \
+        [(b, 0) for b in tree.get("tail", {}).values()]
+    batch = next(np.asarray(b[next(iter(b))]).shape[ax] for b, ax in blocks)
+    s_max = next((np.asarray(b["k"]).shape[ax + 1] for b, ax in blocks
+                  if "k" in b), 1)
+    out = _tensors_like(tfm.cache_specs(cfg, batch, s_max), tree, cfg.dtype,
+                        device)
+    out["unit"] = tfm._unstack(out["unit"], cfg.num_units)
+    return out

@@ -4,14 +4,17 @@ Kernel sources live in ``repro_torch/csrc`` and are built at first use
 (``_build.py``), never at import.
 """
 from .agg import agg as _agg
+from .flash_attn import flash_attn as _flash
 from .hash import hash as _hash
 from .partition_hist import (fused as _fused, partition_hist as _hist,
                              reorder as _reorder)
 from .probe import probe as _probe
+from .ssd import ssd as _ssd
 
 _COUNTED = {"partition_hist_fused": _fused, "radix_scatter": _reorder,
             "seg_agg": _agg, "hash_bucket": _hash, "radix_hist": _hist,
-            "partitioned_probe": _probe}
+            "partitioned_probe": _probe, "flash_attn": _flash,
+            "ssd_intra_chunk": _ssd}
 
 
 def launch_counts() -> dict[str, int]:

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("partition_hist_fused", "radix_scatter", "seg_agg", "hash_bucket",
-           "radix_hist", "partitioned_probe")
+           "radix_hist", "partitioned_probe", "flash_attn", "ssd_intra_chunk")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -16,6 +16,8 @@ from repro_torch.kernels.partition_hist import (fused, partition_hist,
 from repro_torch.kernels.probe import ops as pops
 from repro_torch.kernels.probe import probe as pprobe
 from repro_torch.kernels.probe.ref import random_layout
+from repro_torch.kernels.flash_attn import flash_attn as fa
+from repro_torch.kernels.ssd import ssd as kssd
 
 pytestmark = pytest.mark.cuda
 
@@ -74,7 +76,8 @@ def test_phj_join_on_card_equals_cpu(dev, kind):
     assert launch_counts() == {"partition_hist_fused": 2 * passes,
                                "radix_scatter": 2 * passes, "seg_agg": 0,
                                "hash_bucket": 4, "radix_hist": 2,
-                               "partitioned_probe": 0}
+                               "partitioned_probe": 0, "flash_attn": 0,
+                               "ssd_intra_chunk": 0}
     for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
         assert np.array_equal(w, g)
 
@@ -276,3 +279,111 @@ def test_join_variants_on_card_equal_cpu(dev, kind, ratio):
         assert np.array_equal(w, g)
     assert np.array_equal(got.valid_pairs(),
                           tops.join_variant_oracle(b, p, kind))
+
+
+def _close(got, want, tol):
+    """tests/test_kernels.py's assert_allclose(rtol=tol, atol=tol)."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    bad = (got - want).abs() > tol + tol * want.abs()
+    assert not bad.any(), float((got - want).abs().max())
+
+
+GRID_G = [(2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
+          (2, 256, 256, 4, 4, 32, True), (1, 256, 256, 8, 2, 64, True),
+          (1, 1000, 1000, 4, 2, 96, True), (2, 37, 37, 4, 4, 16, True),
+          (1, 100, 260, 8, 2, 128, False), (1, 1, 1, 2, 1, 64, True)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", GRID_G)
+def test_flash_attn_matches_plain_version(dev, b, sq, sk, h, kv, d, causal,
+                                          dtype, tol):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(sq + d)
+    q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, sk, kv, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, sk, kv, d, generator=g, device=dev).to(dtype)
+    n = fa.launches
+    got = fa.flash_attention(q, k, v, num_kv_heads=kv, causal=causal)
+    assert fa.launches == n + 1 and got.dtype == dtype
+    _close(got, fa.flash_attention_plain(q, k, v, num_kv_heads=kv,
+                                         causal=causal), tol)
+
+
+GRID_H = [(2, 3, 64, 4, 32, 16), (1, 2, 128, 8, 64, 64),
+          (1, 2, 128, 4, 64, 128), (1, 1, 37, 4, 16, 16),
+          (2, 2, 256, 8, 64, 128), (1, 3, 200, 3, 32, 64)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("bs,nc,q,h,p,n", GRID_H)
+def test_ssd_intra_chunk_matches_plain_version(dev, bs, nc, q, h, p, n,
+                                               dtype, tol):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(q + n)
+    x = torch.randn(bs, nc, q, h, p, generator=g, device=dev).to(dtype)
+    dt = torch.rand(bs, nc, q, h, generator=g, device=dev) * 0.19 + 0.01
+    b = torch.randn(bs, nc, q, n, generator=g, device=dev).to(dtype)
+    c = torch.randn(bs, nc, q, n, generator=g, device=dev).to(dtype)
+    a = -torch.exp(torch.randn(h, generator=g, device=dev) * 0.3)
+    n0 = kssd.launches
+    got = kssd.ssd_intra_chunk(x, dt, b, c, a)
+    assert kssd.launches == n0 + 1 and got.dtype == torch.float32
+    _close(got, kssd.ssd_intra_chunk_plain(x, dt, b, c, a), tol)
+
+
+def test_lm_wrappers_reject_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(1, 8, 4, 48, device=dev)
+    with pytest.raises(ValueError):               # head_dim 48
+        fa.flash_attention(q, q, q, num_kv_heads=4)
+    q = torch.zeros(1, 8, 4, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q, q, num_kv_heads=4)
+    x = torch.zeros(1, 1, 300, 2, 64, device=dev)
+    dt = torch.zeros(1, 1, 300, 2, device=dev)
+    bc = torch.zeros(1, 1, 300, 16, device=dev)
+    a = torch.zeros(2, device=dev)
+    with pytest.raises(ValueError):               # chunk above 256
+        kssd.ssd_intra_chunk(x, dt, bc, bc, a)
+    with pytest.raises(ValueError):               # d_state 32
+        kssd.ssd_intra_chunk(x[:, :, :8], dt[:, :, :8],
+                             bc[:, :, :8, :8].repeat(1, 1, 1, 4),
+                             bc[:, :, :8, :8].repeat(1, 1, 1, 4), a)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1_2b", "mamba2_2_7b",
+                                  "qwen3_8b"])
+def test_lm_generate_on_card_matches_cpu(dev, arch):
+    """Reduced configs in float32: the card runs G and H in every prefill
+    and forward, the CPU their plain versions."""
+    import dataclasses
+
+    import repro_torch.configs as tcfgs
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(tcfgs.reduced(tcfgs.get_config(arch)),
+                              dtype="float32")
+    cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    card = tfm.init_params(cfg, torch.Generator().manual_seed(0)).to(dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 37)).astype(np.int32))
+    want, wl = ServeEngine(cfg, cpu, 45).generate(toks, 8,
+                                                  return_logits=True)
+    reset_launch_counts()
+    got, gl = ServeEngine(cfg, card, 45).generate(toks.to(dev), 8,
+                                                  return_logits=True)
+    counts = launch_counts()
+    n_a = (cfg.pattern_unit * cfg.num_units + cfg.tail).count("D") + \
+        (cfg.pattern_unit * cfg.num_units + cfg.tail).count("A")
+    n_m = (cfg.pattern_unit * cfg.num_units + cfg.tail).count("M")
+    assert counts["flash_attn"] == n_a and counts["ssd_intra_chunk"] == n_m
+    v = cfg.vocab_size
+    rel = ((gl.cpu() - wl)[..., :v].abs().max()
+           / wl[..., :v].abs().max()).item()
+    assert rel < 1e-4, rel
+    assert torch.equal(got.cpu(), want)
