@@ -36,7 +36,11 @@ tolerances over their grids in float32 and bfloat16, and on one
 attention block's and one Mamba2 block's activations from the Zamba2
 prefill.  Then the script times each kernel at the main paths' shapes
 beside its bound, its plain version and one PyTorch library call (or a
-composite of them).
+composite of them), with CUDA events around launches enqueued back to
+back.  G (wgmma + TMA at head_dim 64 and 128) is timed at the Zamba2
+shape and at a Qwen3-8B-shaped GQA shape against SDPA, with the variant
+that served it; B (the shared-memory tile reorder) at both passes of the
+join's (7, 6) schedule against a stable sort and two gathers.
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, and the
@@ -173,19 +177,22 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` from CUDA events."""
+    """Milliseconds per call of ``fn()``: CUDA events around ``reps``
+    calls enqueued back to back, so the host's per-call work overlaps the
+    device's instead of adding to it; the median of three such runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -723,12 +730,16 @@ def time_kernels(dev, sched) -> dict[str, list]:
                 pid, minlength=1 << bits))}
         row_b = {
             "bits": bits, "shift": shift,
+            "path": ("shared memory" if reorder.uses_shared(1 << bits)
+                     else "device memory"),
             "ms": cuda_ms(lambda: reorder.radix_scatter(
                 rel.rid, keys, pid, starts, num_parts=1 << bits)),
             "plain_ms": cuda_ms(lambda: reorder.radix_scatter_plain(
                 rel.rid, keys, pid)),
             "library_ms": cuda_ms(lambda: (lambda o: (rel.rid[o], keys[o]))(
                 torch.sort(pid, stable=True).indices))}
+        row_b["vs_library"] = ("no slower" if row_b["ms"] <= row_b[
+            "library_ms"] else "slower")
         for name, row in (("partition_hist_fused", row_a),
                           ("radix_scatter", row_b)):
             row["bound_ms"] = (KERNELS[name]["bytes_per_tuple"] * N_MAIN
@@ -862,11 +873,13 @@ def run_lm_serving(dev, cfg, batches=LM_BATCHES) -> dict:
         ev[1].record()
         ev[1].synchronize()
         counts = rk.launch_counts()
+        variants = dict(fa.launches_by_variant)
         gen_ms = ev[0].elapsed_time(ev[1])
         peak = torch.cuda.max_memory_allocated(dev)
-        log(f"  generate {what}: {gen_ms:.3f} ms, launches {counts}, peak "
-            f"{peak} B")
+        log(f"  generate {what}: {gen_ms:.3f} ms, launches {counts}, G by "
+            f"variant {variants}, peak {peak} B")
         assert counts["flash_attn"] == n_attn, counts
+        assert variants["wgmma"] == n_attn, variants   # head_dim 64, bf16
         assert counts["ssd_intra_chunk"] == n_mamba, counts
         assert sum(counts.values()) == n_attn + n_mamba, counts
         assert tokens.shape == (batch, plen + new)
@@ -915,7 +928,8 @@ def run_lm_serving(dev, cfg, batches=LM_BATCHES) -> dict:
                "tokens_per_s": batch * new / (gen_ms / 1e3),
                "decode_tokens_per_s": batch / (decode_ms / 1e3),
                "peak_bytes": peak, "rel_logits": rel,
-               "argmax_agreement": agree, "launches": counts}
+               "argmax_agreement": agree, "launches": counts,
+               "flash_attn_variants": variants}
         log(f"  {what}: prefill {prefill_ms:.3f} ms, decode "
             f"{decode_ms:.3f} ms per step, {row['tokens_per_s']:.1f} tok/s "
             "over generate")
@@ -960,27 +974,43 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
                                  else "bytes")
 
 
-def time_lm_kernels(dev) -> dict[str, dict]:
-    """Phase 6, continued: G and H at Zamba2's prefill shapes (4 x 2048,
-    bf16), beside their bounds, plain versions and library calls."""
-    b, s, h, d = 4, 2048, 32, 64
-    q, k, v = g_inputs((b, s, s, h, h, d, True), torch.bfloat16, dev, 99)
+def time_g(dev, b: int, s: int, h: int, kv: int, d: int) -> dict:
+    """G at q (b, s, h, d), k/v (b, s, kv, d) bf16 causal beside its
+    operations bound, its plain version and SDPA on the same views."""
+    q, k, v = g_inputs((b, s, s, h, kv, d, True), torch.bfloat16, dev, 99)
     pairs = s * (s + 1) // 2                 # causal (i, j), j <= i
-    bms, bby = bound(4.0 * b * h * pairs * d, 2 * 4 * b * s * h * d,
-                     BF16_FLOPS)
-    out = {"flash_attn": {
-        "shape": f"q/k/v ({b}, {s}, {h}, {d}) bf16, causal",
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, num_kv_heads=h)),
+    bms, bby = bound(4.0 * b * h * pairs * d,
+                     2 * 2 * b * s * (h + kv) * d, BF16_FLOPS)
+    before = dict(fa.launches_by_variant)
+    fa.flash_attention(q, k, v, num_kv_heads=kv)
+    variant = next(n for n, c in fa.launches_by_variant.items()
+                   if c != before[n])
+    row = {
+        "shape": f"q ({b}, {s}, {h}, {d}), k/v ({b}, {s}, {kv}, {d}) bf16, "
+                 "causal", "variant": variant,
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, num_kv_heads=kv)),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
-            q, k, v, num_kv_heads=h), reps=5, warmup=1),
+            q, k, v, num_kv_heads=kv), reps=3, warmup=1),
         "library_ms": cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True)),
+                is_causal=True, enable_gqa=kv != h)),
         "library": "torch.nn.functional.scaled_dot_product_attention "
                    "(is_causal=True) on (B, H, S, D) views",
-        "bound_ms": bms, "bound_by": bby}}
-    del q, k, v
+        "bound_ms": bms, "bound_by": bby}
+    row["vs_library"] = ("no slower" if row["ms"] <= row["library_ms"]
+                         else "slower")
+    return row
+
+
+def time_lm_kernels(dev) -> dict[str, dict]:
+    """Phase 6, continued: G at Zamba2's prefill shape (4 x 2048 x 32
+    heads of 64) and at the Qwen3-8B-shaped GQA shape of ``GRID_G``
+    (2048, 32 / 8 heads of 128), H at Zamba2's prefill shape, all bf16,
+    beside their bounds, plain versions and library calls."""
+    zamba = time_g(dev, 4, 2048, 32, 32, 64)
+    gqa = time_g(dev, 1, 2048, 32, 8, 128)
+    out = {"flash_attn": dict(zamba, per_shape=[zamba, gqa])}
     bs, nc, cq, hh, p, n = 4, 8, 256, 64, 64, 64
     args = h_inputs((bs, nc, cq, hh, p, n), torch.bfloat16, dev, 98)
     tri = cq * (cq + 1) // 2
@@ -1077,6 +1107,9 @@ def main() -> int:
         else:
             row = other_times[name]
             path = path_of[name]
+        if name == "flash_attn":
+            row["launches_by_variant"] = next(iter(lm["batches"].values()))[
+                "flash_attn_variants"]
         record.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],

@@ -22,7 +22,7 @@ import torch
 
 from .hash_table import HashTable, JoinResult
 from .partition import Partitions
-from .relation import Relation
+from .relation import Relation, resolve_device
 
 _LEAVES = {Relation: 2, HashTable: 8, JoinResult: 3, Partitions: 4}
 
@@ -39,9 +39,11 @@ def to_numpy(obj) -> tuple[np.ndarray, ...]:
     return tuple(out)
 
 
-def from_numpy(cls, arrays, device="cpu"):
+def from_numpy(cls, arrays, device=None):
     """A ``cls`` (one of Relation, HashTable, JoinResult, Partitions) from
-    arrays in the order ``to_numpy`` gives (the JAX pytree-leaf order)."""
+    arrays in the order ``to_numpy`` gives (the JAX pytree-leaf order), on
+    ``device`` (the card unless told otherwise)."""
+    device = resolve_device(device)
     arrays = [np.asarray(a) for a in arrays]
     if len(arrays) != _LEAVES[cls]:
         raise ValueError(f"{cls.__name__} takes {_LEAVES[cls]} arrays, got "
@@ -73,19 +75,23 @@ def _tensors_like(specs: dict, tree: dict, model_dtype: str, device) -> dict:
     return out
 
 
-def lm_params_from_numpy(cfg, tree: dict, device="cpu"):
+def lm_params_from_numpy(cfg, tree: dict, device=None):
     """The port's ``LM`` holding the JAX package's parameters ``tree``
-    (``jax.tree.map(np.asarray, params)``, bf16 leaves as float32)."""
+    (``jax.tree.map(np.asarray, params)``, bf16 leaves as float32), on
+    ``device`` (the card unless told otherwise)."""
     from ..models import transformer as tfm
 
+    device = resolve_device(device)
     return tfm.lm_from_tree(cfg, _tensors_like(tfm.param_specs(cfg), tree,
                                                cfg.dtype, device))
 
 
-def lm_cache_from_numpy(cfg, tree: dict, device="cpu") -> dict:
-    """The port's cache from a JAX serving cache of the same layout."""
+def lm_cache_from_numpy(cfg, tree: dict, device=None) -> dict:
+    """The port's cache from a JAX serving cache of the same layout, on
+    ``device`` (the card unless told otherwise)."""
     from ..models import transformer as tfm
 
+    device = resolve_device(device)
     # (block, index of its batch axis): stacked unit leaves lead with n.
     blocks = [(b, 1) for b in tree["unit"].values()] + \
         [(b, 0) for b in tree.get("tail", {}).values()]

@@ -25,3 +25,5 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _COUNTED.values():
         mod.launches = 0
+        for variant in getattr(mod, "launches_by_variant", {}):
+            mod.launches_by_variant[variant] = 0

@@ -9,6 +9,13 @@ masked inside the kernel); on CPU tensors it runs
 There is no fallback between the two: a head_dim, dtype or layout the
 kernel does not take raises.
 
+The kernel has three variants, chosen by ``variant_for`` from the dtype
+and head_dim alone: ``wgmma`` (bfloat16, D 64 and 128: warpgroup MMA fed
+by TMA), ``mma_sync`` (bfloat16, D 16, 32, 96) and ``cuda_cores``
+(float32).  ``launches_by_variant`` counts each.  TMA reads the tensors
+through 4-D maps, so ``tma_strides`` checks the strides and alignment it
+needs before the launch.
+
 The two differ in rounding, as the Pallas kernel and its oracle do:
 ``_sdpa`` rounds the scores to the input dtype before its float32
 softmax; the kernel keeps them in float32 (it rounds the weights to
@@ -22,9 +29,39 @@ import ctypes
 import torch
 
 HEAD_DIMS = (16, 32, 64, 96, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("cuda_cores", "mma_sync", "wgmma")   # the kernel's codes 0-2
 
 launches = 0  # kernel launches since the last reset
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def variant_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel variant that serves ``dtype`` at ``head_dim``."""
+    if dtype == torch.float32:
+        return "cuda_cores"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"no kernel variant for {dtype}")
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def tma_strides(shape, itemsize: int, data_ptr: int) -> tuple[int, ...]:
+    """Byte strides of the 4-D TMA map over a contiguous (B, S, heads, D)
+    tensor, dims above the innermost.  Raises unless TMA can read it: the
+    base 16-byte aligned, every stride a multiple of 16 below 2^40 and
+    every extent at most 2^32."""
+    b, s, heads, d = shape
+    if data_ptr % 16:
+        raise ValueError("TMA needs a 16-byte-aligned base address")
+    if max(shape) > 1 << 32:
+        raise ValueError(f"extent above 2^32 in {tuple(shape)}")
+    strides = (d * itemsize, heads * d * itemsize, s * heads * d * itemsize)
+    for st in strides:
+        if st % 16 or st >= 1 << 40:
+            raise ValueError(f"TMA stride {st} B is not a multiple of 16 "
+                             "below 2^40")
+    return strides
 
 
 def causal_mask(sq: int, sk: int, device) -> torch.Tensor:
@@ -63,6 +100,35 @@ def _check(q, k, v, num_kv_heads: int) -> None:
         raise ValueError(f"tensors on several devices: {devs}")
 
 
+_fn = None
+_counters: dict = {}
+
+
+def _kernel():
+    """``flash_attn_fwd`` of ``csrc/flash_attn.cu``, built and typed once."""
+    global _fn
+    if _fn is None:
+        from .._build import load
+
+        fn = load("flash_attn").flash_attn_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + \
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _counter(dev: torch.device) -> int:
+    """Address of the wgmma variant's tile counter on ``dev``: 8 bytes
+    that each launch zeroes on its stream before its blocks count tiles
+    off it (so launches on one stream may share it)."""
+    held = _counters.get(dev)
+    if held is None:
+        buf = torch.empty(1, dtype=torch.int64, device=dev)
+        _counters[dev] = held = (buf, buf.data_ptr())
+    return held[1]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     num_kv_heads: int, causal: bool = True) -> torch.Tensor:
     """Softmax attention of q (B, Sq, H, D) over k, v (B, Sk, KV, D);
@@ -83,25 +149,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} above 65535")
+    variant = variant_for(q.dtype, d)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            # The tensor-core path loads 16-byte vectors.
+        if variant == "wgmma":
+            tma_strides(t.shape, t.element_size(), t.data_ptr())
+        elif q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            # The tensor-core paths move 16-byte vectors.
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    from .._build import check, load
+    from .._build import check
 
-    fn = load("flash_attn").flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + \
-        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, k.shape[1], h, num_kv_heads, d, int(causal),
-                 _DTYPES[q.dtype], stream)
-    check(err, "flash_attn")
+    counter = _counter(dev) if variant == "wgmma" else None
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            k.shape[1], h, num_kv_heads, d, int(causal), _DTYPES[q.dtype],
+            VARIANTS.index(variant), counter)
+    if dev.index in (None, torch.cuda.current_device()):
+        err = _kernel()(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
+    check(err, f"flash_attn ({variant})")
     global launches
     launches += 1
+    launches_by_variant[variant] += 1
     return out

@@ -2,9 +2,14 @@
 
 Counterpart of ``repro/kernels/partition_hist/reorder.py``.  On CUDA
 tensors ``radix_scatter`` launches ``csrc/radix_scatter.cu`` (per-tile
-histograms, a scan across tiles, a stable warp-ordered scatter) at any
-``n``; on CPU tensors it runs ``radix_scatter_plain``, a stable sort by
-``pid`` plus gathers.  Both equal a stable sort bit for bit.
+histograms, a scan across tiles, a stable scatter) at any ``n``; on CPU
+tensors it runs ``radix_scatter_plain``, a stable sort by ``pid`` plus
+gathers.  Both equal a stable sort bit for bit.
+
+Up to ``SHARED_MAX_PARTS`` partitions the kernel ranks a tile of
+``SHARED_TILE`` tuples in shared memory and writes it back partition by
+partition; wider fanouts keep their cursors in device memory, with tiles
+of ``8 * num_parts`` tuples.
 """
 from __future__ import annotations
 
@@ -12,15 +17,27 @@ import ctypes
 
 import torch
 
-MIN_TILE = 2048
+SHARED_MAX_PARTS = 2048   # csrc/radix_scatter.cu: shared-memory path
+SHARED_TILE = 4096        # its tile: 256 threads x 16 tuples
 
 launches = 0  # kernel launches since the last reset
 
 
+def uses_shared(num_parts: int) -> bool:
+    """Whether ``num_parts`` partitions take the shared-memory path."""
+    return num_parts <= SHARED_MAX_PARTS
+
+
 def tile_len(num_parts: int) -> int:
-    """Tuples per tile.  It grows with the fanout so the kernel's
-    (num_parts x tiles) offset matrix stays near n/8 ints at 2^16 bins."""
-    return max(MIN_TILE, 8 * num_parts)
+    """Tuples per tile: ``SHARED_TILE`` on the shared-memory path; on the
+    device-memory path it grows with the fanout, so the (num_parts x
+    tiles) offset matrix stays at n/8 ints."""
+    return SHARED_TILE if uses_shared(num_parts) else 8 * num_parts
+
+
+def scratch_ints(n: int, num_parts: int) -> int:
+    """int32 entries of the kernel's (num_parts x tiles) offset matrix."""
+    return num_parts * max(1, -(-n // tile_len(num_parts)))
 
 
 def radix_scatter_plain(rid: torch.Tensor, key: torch.Tensor,
@@ -67,8 +84,8 @@ def radix_scatter(rid: torch.Tensor, key: torch.Tensor, pid: torch.Tensor,
                                            ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     tile = tile_len(num_parts)
-    tiles = max(1, -(-n // tile))
-    offs = torch.empty(num_parts * tiles, dtype=torch.int32, device=dev)
+    offs = torch.empty(scratch_ints(n, num_parts), dtype=torch.int32,
+                       device=dev)
     out_rid = torch.empty_like(rid)
     out_key = torch.empty_like(key)
     with torch.cuda.device(dev):

@@ -25,7 +25,7 @@ def relation(keys, rids=None) -> tuple[jc.Relation, tc.Relation]:
     rids = (np.arange(keys.shape[0], dtype=np.int32) if rids is None
             else np.asarray(rids, dtype=np.int32))
     return (jc.Relation(jnp.asarray(rids), jnp.asarray(keys)),
-            interop.from_numpy(tc.Relation, [rids, keys]))
+            interop.from_numpy(tc.Relation, [rids, keys], device="cpu"))
 
 
 def flatten(obj) -> list[np.ndarray]:

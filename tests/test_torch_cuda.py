@@ -335,6 +335,67 @@ def test_ssd_intra_chunk_matches_plain_version(dev, bs, nc, q, h, p, n,
     _close(got, kssd.ssd_intra_chunk_plain(x, dt, b, c, a), tol)
 
 
+@pytest.mark.parametrize("sq", [1, 127, 128, 129, 1000, 2048])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attn_wgmma_matches_plain_version(dev, d, causal, group, sq):
+    """The wgmma variant over ragged and tile-sized lengths.  Sq = 1 and
+    129 leave a query tile whose second warpgroup holds only padding rows;
+    the full case reads Sk = Sq + 37 keys."""
+    sk = sq if causal else sq + 37
+    h = 4
+    g = torch.Generator(device=dev).manual_seed(sq * 7 + d + group)
+    q = torch.randn(1, sq, h, d, generator=g, device=dev).bfloat16()
+    k = torch.randn(1, sk, h // group, d, generator=g, device=dev).bfloat16()
+    v = torch.randn(1, sk, h // group, d, generator=g, device=dev).bfloat16()
+    before = fa.launches_by_variant["wgmma"]
+    got = fa.flash_attention(q, k, v, num_kv_heads=h // group,
+                             causal=causal)
+    assert fa.launches_by_variant["wgmma"] == before + 1
+    _close(got, fa.flash_attention_plain(q, k, v, num_kv_heads=h // group,
+                                         causal=causal), 2e-2)
+
+
+def test_flash_attn_variants_by_head_dim(dev):
+    reset_launch_counts()
+    for d in (64, 128, 32, 96):
+        q = torch.randn(1, 130, 2, d, device=dev).bfloat16()
+        fa.flash_attention(q, q, q, num_kv_heads=2)
+    q = torch.randn(1, 130, 2, 64, device=dev)
+    fa.flash_attention(q, q, q, num_kv_heads=2)
+    assert fa.launches_by_variant == {"cuda_cores": 1, "mma_sync": 2,
+                                      "wgmma": 2}
+    assert launch_counts()["flash_attn"] == 5
+
+
+@pytest.mark.parametrize("order", ["uniform", "one_partition", "descending"])
+@pytest.mark.parametrize("bits", [1, 6, 7, 11, 13, 16])
+@pytest.mark.parametrize("n_of", ["tile-1", "tile", "tile+1", "3tile+17",
+                                  "2^22+5"])
+def test_radix_scatter_tiles_match_plain_version(dev, n_of, bits, order):
+    """Kernel B at tile edges on both paths (shared memory up to 11 bits,
+    device memory above), bit for bit against a stable sort."""
+    p = 1 << bits
+    tile = reorder.tile_len(p)
+    n = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "3tile+17": 3 * tile + 17, "2^22+5": (1 << 22) + 5}[n_of]
+    rng = np.random.default_rng(n + bits)
+    pid = rng.integers(0, p, n).astype(np.int32)
+    if order == "one_partition":
+        pid[:] = p // 2
+    elif order == "descending":
+        pid = -np.sort(-pid)
+    pid_t = torch.from_numpy(pid).to(dev)
+    rid = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+    key = torch.from_numpy(_ints(rng, n)).to(dev)
+    hist = torch.bincount(pid_t, minlength=p).to(torch.int32)
+    starts = torch.cumsum(hist, 0, dtype=torch.int32) - hist
+    got = reorder.radix_scatter(rid, key, pid_t, starts, num_parts=p)
+    want = reorder.radix_scatter_plain(rid, key, pid_t)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_lm_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 8, 4, 48, device=dev)
     with pytest.raises(ValueError):               # head_dim 48

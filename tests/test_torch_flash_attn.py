@@ -95,3 +95,33 @@ def test_wrapper_rejects_bad_shapes():
         fa.flash_attention(q[0], kv, kv, num_kv_heads=2)
     with pytest.raises(ValueError):
         fa.flash_attention(q, kv[:, :0], kv[:, :0], num_kv_heads=2)
+
+
+@pytest.mark.parametrize("dtype,d,variant", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 96, "mma_sync"), (torch.float32, 64, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores")])
+def test_variant_is_chosen_by_dtype_and_head_dim(dtype, d, variant):
+    assert fa.variant_for(dtype, d) == variant
+    assert variant in fa.launches_by_variant
+
+
+def test_variant_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        fa.variant_for(torch.float16, 64)
+
+
+def test_tma_strides_of_the_zamba2_and_gqa_shapes():
+    assert fa.tma_strides((4, 2048, 32, 64), 2, 0) == (128, 4096, 8388608)
+    assert fa.tma_strides((1, 2048, 8, 128), 2, 4096) == (256, 2048, 4194304)
+
+
+@pytest.mark.parametrize("shape,ptr", [
+    ((1, 8, 4, 64), 8),                 # base not 16-byte aligned
+    ((1, 8, 3, 4), 0),                  # 8-byte rows
+    ((1, 1 << 28, 64, 64), 0),          # a batch stride of 2^41 bytes
+    ((1, 1, (1 << 32) + 1, 64), 0)])    # an extent above 2^32
+def test_tma_strides_reject_what_tma_cannot_read(shape, ptr):
+    with pytest.raises(ValueError):
+        fa.tma_strides(shape, 2, ptr)

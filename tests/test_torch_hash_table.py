@@ -56,7 +56,7 @@ def test_probe_steps_match(rng):
     jb, tb = _build_side(rng)
     jp, tp = _probe_side(rng)
     jt = jc.build_hash_table(jb, 256)
-    tt = interop.from_numpy(tc.HashTable, jax.tree.leaves(jt))
+    tt = interop.from_numpy(tc.HashTable, jax.tree.leaves(jt), device="cpu")
     jbk, tbk = jht.probe_p1(jp.key, 256), tht.probe_p1(tp.key, 256)
     assert_same(jbk, [tbk])
     jks, tks = jht.probe_p2(jt, jbk), tht.probe_p2(tt, tbk)
@@ -146,17 +146,34 @@ def test_concat_results_matches(rng):
 def test_interop_round_trip(rng):
     jb, _ = _build_side(rng)
     jt = jc.build_hash_table(jb, 64)
-    tt = interop.from_numpy(tc.HashTable, jax.tree.leaves(jt))
+    tt = interop.from_numpy(tc.HashTable, jax.tree.leaves(jt), device="cpu")
     assert_same(jt, tt)
     assert all(isinstance(t, torch.Tensor) and t.dtype == torch.int32
                for t in (tt.rids, tt.num_keys))
     parts = jc.radix_partition_scheduled(jb, schedule=(3,))
-    tparts = interop.from_numpy(tc.Partitions, jax.tree.leaves(parts))
+    tparts = interop.from_numpy(tc.Partitions, jax.tree.leaves(parts),
+                                 device="cpu")
     assert_same(parts, tparts)
     with pytest.raises(ValueError):
-        interop.from_numpy(tc.JoinResult, jax.tree.leaves(parts))
+        interop.from_numpy(tc.JoinResult, jax.tree.leaves(parts),
+                           device="cpu")
 
 
 def test_default_num_buckets_matches():
     for n in (0, 1, 100, 4096, 1 << 24):
         assert tc.default_num_buckets(n) == jc.default_num_buckets(n)
+
+
+def test_interop_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the conversions go to the card, and raise on a
+    host that has none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rids = np.arange(8, dtype=np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.from_numpy(tc.Relation, [rids, rids])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.lm_params_from_numpy(None, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.lm_cache_from_numpy(None, {"unit": {}})
+    rel = interop.from_numpy(tc.Relation, [rids, rids], device="cpu")
+    assert rel.rid.device.type == "cpu"

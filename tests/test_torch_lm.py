@@ -173,7 +173,7 @@ def served():
             return cache[arch]
         jcfg, tcfg = cfgs(arch)
         jp = jtfm.init_params(jcfg, jax.random.PRNGKey(0))
-        tp = interop.lm_params_from_numpy(tcfg, to_np(jp))
+        tp = interop.lm_params_from_numpy(tcfg, to_np(jp), device="cpu")
         rng = np.random.default_rng(1)
         toks = rng.integers(0, jcfg.vocab_size, (2, PROMPT), dtype=np.int32)
         jl, jc = jtfm.prefill(jp, jcfg, jnp.asarray(toks))
@@ -219,7 +219,7 @@ def test_decode_step_logits_match_jax(served, arch):
     tok = np.array(s["out"][:, PROMPT:PROMPT + 1])
     jl, jc2 = jtfm.decode_step(s["jp"], jcfg, jnp.asarray(tok), jc,
                                jnp.int32(PROMPT))
-    tc = interop.lm_cache_from_numpy(tcfg, to_np(jc))
+    tc = interop.lm_cache_from_numpy(tcfg, to_np(jc), device="cpu")
     tl, tc2 = ttfm.decode_step(s["tp"], tcfg, torch.from_numpy(tok), tc,
                                PROMPT)
     assert rel_err(tl, jl, tcfg.vocab_size) <= REL
@@ -258,7 +258,7 @@ def test_bf16_prefill_within_archs_limit():
     """One bfloat16 case, held to tests/test_archs.py's 0.06 limit."""
     jcfg, tcfg = cfgs("zamba2_1_2b", "bfloat16")
     jp = jtfm.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = interop.lm_params_from_numpy(tcfg, to_np(jp))
+    tp = interop.lm_params_from_numpy(tcfg, to_np(jp), device="cpu")
     assert tp["embed"]["embedding"].dtype == torch.bfloat16
     toks = np.random.default_rng(2).integers(0, 503, (2, 37), dtype=np.int32)
     jl, _ = jtfm.prefill(jp, jcfg, jnp.asarray(toks))
@@ -355,7 +355,7 @@ def test_engine_checks_and_cache_roundtrip(served):
         eng.generate(torch.from_numpy(s["toks"]), 0)
     tree = to_np(s["jc"])
     back = cache_to_np(
-        interop.lm_cache_from_numpy(s["tcfg"], tree))
+        interop.lm_cache_from_numpy(s["tcfg"], tree, device="cpu"))
     for g, w in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         assert np.array_equal(g, w)
 

@@ -173,3 +173,31 @@ def test_kernel_wrappers_reject_other_devices():
         radix_scatter(cpu, cpu, meta, cpu[:16], num_parts=16)
     with pytest.raises(ValueError, match="power of two"):
         radix_scatter(cpu, cpu, cpu, cpu[:12], num_parts=12)
+
+
+@pytest.mark.parametrize("bits", [1, 6, 7, 11])
+def test_scatter_tiles_on_the_shared_path(bits):
+    from repro_torch.kernels.partition_hist import reorder
+    p = 1 << bits
+    assert reorder.uses_shared(p)
+    assert reorder.tile_len(p) == reorder.SHARED_TILE == 4096
+    assert reorder.scratch_ints(1 << 24, p) == p * 4096
+    assert reorder.scratch_ints(4097, p) == 2 * p
+    assert reorder.scratch_ints(1, p) == p
+
+
+@pytest.mark.parametrize("bits", [12, 13, 16])
+def test_scatter_tiles_on_the_device_memory_path(bits):
+    from repro_torch.kernels.partition_hist import reorder
+    p = 1 << bits
+    assert not reorder.uses_shared(p)
+    assert reorder.tile_len(p) == 8 * p
+    # The offset matrix stays at n/8 ints once n spans a tile.
+    assert reorder.scratch_ints(1 << 24, p) == (1 << 24) // 8
+    assert reorder.scratch_ints(5, p) == p
+
+
+def test_shared_path_threshold_is_2048_partitions():
+    from repro_torch.kernels.partition_hist import reorder
+    assert reorder.SHARED_MAX_PARTS == 2048
+    assert reorder.uses_shared(2048) and not reorder.uses_shared(4096)
