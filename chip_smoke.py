@@ -6,7 +6,10 @@ Builds the port's eight CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once) and holds each integer kernel
 bit for bit against its plain PyTorch version at the main paths' shapes and
 at ragged and wide ones: A (n1+n2), B (n3), C (segmented aggregation),
-D (hash bucket) and E (radix histogram).  Then it drives the port's
+D (hash bucket) and E (radix histogram), with A, B and E also at digits of
+17 and 18 bits (past the planner's 16) and A at 1-3 bits on ragged and
+unaligned keys, and ``phj_join`` over the pass schedules (17,) and (9, 9)
+at 2^20 against the join oracle.  Then it drives the port's
 main paths, each with the launch counts set to 0 just before it and read
 just after, and verifies each against a NumPy oracle:
 
@@ -31,16 +34,22 @@ just after, and verifies each against a NumPy oracle:
   tests/test_archs.py's 0.06 relative limit.
 
 Kernel F (partitioned probe) is held against its plain version first,
-like A-E; G and H against theirs within tests/test_kernels.py's
-tolerances over their grids in float32 and bfloat16, and on one
-attention block's and one Mamba2 block's activations from the Zamba2
-prefill.  Then the script times each kernel at the main paths' shapes
+like A-E, and again at 2^17 partitions after the probe join; G and H
+against theirs within tests/test_kernels.py's tolerances over their
+grids in float32 and bfloat16 (H's bfloat16 cases through its
+tensor-core variant and through its CUDA-core variant, which serves
+float32), and on one attention block's and one Mamba2 block's
+activations from the Zamba2 prefill, whose 32 H launches the
+tensor-core variant must all serve.  Then the script times each kernel at the main paths' shapes
 beside its bound, its plain version and one PyTorch library call (or a
 composite of them), with CUDA events around launches enqueued back to
 back.  G (wgmma + TMA at head_dim 64 and 128) is timed at the Zamba2
 shape and at a Qwen3-8B-shaped GQA shape against SDPA, with the variant
 that served it; B (the shared-memory tile reorder) at both passes of the
-join's (7, 6) schedule against a stable sort and two gathers.
+join's (7, 6) schedule against a stable sort and two gathers; A (wide
+loads, per-warp sub-histograms) there too against ``torch.bincount``;
+H (wgmma + TMA) at the Zamba2 prefill shape, with its CUDA-core
+variant's time beside it.
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, and the
@@ -100,6 +109,13 @@ GRID_BITS = (1, 6, 7, 13, 16)
 GRID_SHIFTS = (0, 7)
 GRID_BUCKETS = (1, 1 << 7, 1 << 13, 1 << 31)
 GRID_PARTS = (2, 1 << 7, 1 << 13, 1 << 16)
+# Digits wider than 16 bits (a pass schedule the reference takes past the
+# planner's 16), narrow digits and ragged or unaligned key vectors.
+N_WIDE = 1 << 20
+WIDE_BITS = (17, 18)
+NARROW_BITS = (1, 2, 3)
+WIDE_SCHEDULES = ((17,), (9, 9))
+WIDE_PROBE_BITS = 17
 JOIN_KERNELS = ("partition_hist_fused", "radix_scatter", "hash_bucket",
                 "radix_hist")
 KERNELS = {
@@ -240,6 +256,65 @@ def check_kernels(dev) -> dict[str, int]:
                     err["partition_hist_fused"], ea)
                 err["radix_scatter"] = max(err["radix_scatter"], eb)
     return err
+
+
+def check_wide_kernels(dev) -> dict[str, int]:
+    """Phases 2-3, continued: A, B and E at digits of 17 and 18 bits
+    (2^17 and 2^18 partitions: A's and E's global histograms, B's
+    device-memory cursors) at n = 2^20, shifts 0 and 7; A at narrow digits
+    (1-3 bits) on a ragged n and on keys that start 4 bytes past an
+    aligned address (its scalar path); all bit for bit."""
+    err = {"partition_hist_fused": 0, "radix_scatter": 0, "radix_hist": 0}
+    keys = keys_for(N_WIDE, dev, seed=17)
+    rid = torch.arange(N_WIDE, dtype=torch.int32, device=dev)
+    for bits in WIDE_BITS:
+        for shift in GRID_SHIFTS:
+            pid, hist = fused.partition_hist_fused(keys, shift=shift,
+                                                   bits=bits)
+            ppid, phist = fused.partition_hist_fused_plain(keys, shift=shift,
+                                                           bits=bits)
+            ea = max(max_abs_diff(pid, ppid), max_abs_diff(hist, phist))
+            ee = max_abs_diff(partition_hist.radix_hist(pid,
+                                                        num_parts=1 << bits),
+                              phist)
+            starts = torch.cumsum(hist, 0, dtype=torch.int32) - hist
+            got = reorder.radix_scatter(rid, keys, pid, starts,
+                                        num_parts=1 << bits)
+            want = reorder.radix_scatter_plain(rid, keys, ppid)
+            eb = max(max_abs_diff(a, b) for a, b in zip(got, want))
+            torch.cuda.synchronize()
+            log(f"  n={N_WIDE} bits={bits} shift={shift}: A err={ea} B err={eb} "
+                f"E err={ee} (B on {reorder.tile_len(1 << bits)}-tuple "
+                "tiles, device memory)")
+            assert ea == eb == ee == 0, (bits, shift, ea, eb, ee)
+    for n in (N_WIDE + 3, 5):
+        base = keys_for(n + 1, dev, seed=n)
+        for bits in NARROW_BITS:
+            for name, k in (("aligned", base[:n]), ("offset", base[1:])):
+                got = fused.partition_hist_fused(k, shift=7, bits=bits)
+                want = fused.partition_hist_fused_plain(k, shift=7, bits=bits)
+                ea = max(max_abs_diff(a, b) for a, b in zip(got, want))
+                torch.cuda.synchronize()
+                assert ea == 0, ("narrow", n, bits, name, ea)
+        log(f"  n={n} bits 1-3, aligned and offset keys: A err=0")
+    return err
+
+
+def run_wide_joins(dev) -> None:
+    """Phases 2-3, continued: ``phj_join`` over pass schedules past 16
+    bits, uniform(2^20, seed 1) x uniform(2^20, seed 2), against the
+    join oracle."""
+    build = uniform_relation(N_WIDE, seed=1, device=dev)
+    probe = uniform_relation(N_WIDE, seed=2, device=dev)
+    exp = uniform_oracle(N_WIDE)
+    for sched in WIDE_SCHEDULES:
+        rk.reset_launch_counts()
+        res = phj_join(build, probe, schedule=sched,
+                       max_out=2 * N_WIDE + len(exp))
+        counts = rk.launch_counts()
+        for name in ("partition_hist_fused", "radix_scatter", "radix_hist"):
+            assert counts[name] > 0, (sched, name, counts)
+        verify(res, exp, f"phj_join 2^20 x 2^20, schedule {sched}")
 
 
 def check_group_kernels(dev) -> dict[str, int]:
@@ -497,6 +572,31 @@ def check_probe_kernel(dev) -> dict[str, int]:
         err = max(err, e)
     assert GRID_PROBE[-1][1] > limit, ("no row past shared memory", limit)
     return {"partitioned_probe": err}
+
+
+def check_wide_probe(dev, n: int = 1 << 16) -> dict[str, int]:
+    """Phase 7, continued: the layout packing and kernel F at 2^17
+    partitions (past the old 2^16 cap), unique(n) x uniform(n), the probe
+    against its plain version bit for bit and the pairs against the join
+    oracle."""
+    build = unique_relation(n, seed=3, device=dev)
+    probe = uniform_relation(n, seed=4, device=dev)
+    rk.reset_launch_counts()
+    layout = pops.build_partitioned_table(build, probe,
+                                          total_bits=WIDE_PROBE_BITS)
+    rid = pops.probe(*layout[:3])
+    counts = rk.launch_counts()
+    assert counts["partitioned_probe"] == 1 and counts["radix_hist"] == 2, \
+        counts
+    e = max_abs_diff(rid, pprobe.probe_plain(*layout[:3]))
+    got = probe_pairs(layout[3], rid)
+    exp = join_oracle(build, probe)
+    assert e == 0 and got.shape == exp.shape and np.array_equal(got, exp), \
+        ("wide partitioned probe", e)
+    log(f"  P=2^{WIDE_PROBE_BITS} K={layout[0].shape[1]} "
+        f"M={layout[2].shape[1]}, {n} x {n}: F err={e}, {len(exp)} "
+        "matches, verified against the oracle")
+    return {"partitioned_probe": e}
 
 
 def probe_pairs(qr: torch.Tensor, rid: torch.Tensor) -> np.ndarray:
@@ -785,7 +885,9 @@ def h_inputs(shape, dtype, dev, seed: int):
 
 def check_lm_kernels(dev) -> dict[str, float]:
     """Phase 9: kernels G and H against their plain versions over their
-    grids, in float32 (TF32 off) and in bfloat16."""
+    grids, in float32 (TF32 off) and in bfloat16; H in both variants:
+    bfloat16 through the tensor-core (wgmma) variant that serves it, and
+    through the CUDA-core variant too, which serves float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     err = {"flash_attn": 0.0, "ssd_intra_chunk": 0.0}
@@ -800,14 +902,28 @@ def check_lm_kernels(dev) -> dict[str, float]:
             err["flash_attn"] = max(err["flash_attn"], e)
             log(f"  G {shape} {dtype}: max abs err {e:.3g} (tol {tol})")
             del q, k, v, got, want
-    for dtype, tol in TOL_H.items():
+    by_variant = {}
+    for dtype, variant in ((torch.bfloat16, None),
+                           (torch.bfloat16, "cuda_cores"),
+                           (torch.float32, None)):
+        tol = TOL_H[dtype]
         for i, shape in enumerate(GRID_H):
             args = h_inputs(shape, dtype, dev, seed=i)
-            got = kssd.ssd_intra_chunk(*args)
+            before = dict(kssd.launches_by_variant)
+            got = kssd.ssd_intra_chunk(*args, variant=variant)
+            ran = next(n for n, c in kssd.launches_by_variant.items()
+                       if c != before[n])
+            assert ran == (variant or kssd.variant_for(dtype)), (shape, ran)
             want = kssd.ssd_intra_chunk_plain(*args)
             e = close_err(got, want, tol, ("ssd_intra_chunk", shape, dtype))
             err["ssd_intra_chunk"] = max(err["ssd_intra_chunk"], e)
-            log(f"  H {shape} {dtype}: max abs err {e:.3g} (tol {tol})")
+            key = f"{ran} {str(dtype).replace('torch.', '')}"
+            by_variant[key] = max(by_variant.get(key, 0.0), e)
+            log(f"  H {shape} {dtype} {ran}: max abs err {e:.3g} "
+                f"(tol {tol} + {tol} |want|)")
+    for key, e in by_variant.items():
+        log(f"  H {key}: largest error over GRID_H {e:.3g}")
+    assert kssd.variant_for(torch.bfloat16) == "wgmma"
     torch.cuda.synchronize()
     return err
 
@@ -874,13 +990,15 @@ def run_lm_serving(dev, cfg, batches=LM_BATCHES) -> dict:
         ev[1].synchronize()
         counts = rk.launch_counts()
         variants = dict(fa.launches_by_variant)
+        h_variants = dict(kssd.launches_by_variant)
         gen_ms = ev[0].elapsed_time(ev[1])
         peak = torch.cuda.max_memory_allocated(dev)
         log(f"  generate {what}: {gen_ms:.3f} ms, launches {counts}, G by "
-            f"variant {variants}, peak {peak} B")
+            f"variant {variants}, H by variant {h_variants}, peak {peak} B")
         assert counts["flash_attn"] == n_attn, counts
         assert variants["wgmma"] == n_attn, variants   # head_dim 64, bf16
         assert counts["ssd_intra_chunk"] == n_mamba, counts
+        assert h_variants["wgmma"] == n_mamba, h_variants   # bf16
         assert sum(counts.values()) == n_attn + n_mamba, counts
         assert tokens.shape == (batch, plen + new)
         assert torch.equal(tokens[:, :plen].cpu(), prompts.cpu())
@@ -929,7 +1047,8 @@ def run_lm_serving(dev, cfg, batches=LM_BATCHES) -> dict:
                "decode_tokens_per_s": batch / (decode_ms / 1e3),
                "peak_bytes": peak, "rel_logits": rel,
                "argmax_agreement": agree, "launches": counts,
-               "flash_attn_variants": variants}
+               "flash_attn_variants": variants,
+               "ssd_intra_chunk_variants": h_variants}
         log(f"  {what}: prefill {prefill_ms:.3f} ms, decode "
             f"{decode_ms:.3f} ms per step, {row['tokens_per_s']:.1f} tok/s "
             "over generate")
@@ -943,7 +1062,9 @@ def run_lm_serving(dev, cfg, batches=LM_BATCHES) -> dict:
     want = fa.flash_attention_plain(q, k, v, **kw)
     eg = close_err(got, want, TOL_G[q.dtype], "G on Zamba2 activations")
     args, _ = ch.args
+    before = kssd.launches_by_variant["wgmma"]
     got = kssd.ssd_intra_chunk(*args)
+    assert kssd.launches_by_variant["wgmma"] == before + 1
     want = kssd.ssd_intra_chunk_plain(*args)
     eh = close_err(got, want, TOL_H[args[0].dtype],
                    "H on Zamba2 activations")
@@ -1020,7 +1141,10 @@ def time_lm_kernels(dev) -> dict[str, dict]:
                      + hh * 4, BF16_FLOPS)
     out["ssd_intra_chunk"] = {
         "shape": f"x ({bs}, {nc}, {cq}, {hh}, {p}) bf16, N {n}",
+        "variant": kssd.variant_for(torch.bfloat16),
         "ms": cuda_ms(lambda: kssd.ssd_intra_chunk(*args)),
+        "cuda_cores_ms": cuda_ms(lambda: kssd.ssd_intra_chunk(
+            *args, variant="cuda_cores")),
         "plain_ms": cuda_ms(lambda: kssd.ssd_intra_chunk_plain(*args),
                             reps=5, warmup=1),
         "library_ms": cuda_ms(lambda: library_ssd(*args)),
@@ -1049,6 +1173,9 @@ def main() -> int:
     err = check_kernels(dev)
     err.update(check_group_kernels(dev))
     err.update(check_probe_kernel(dev))
+    for name, e in check_wide_kernels(dev).items():
+        err[name] = max(err[name], e)
+    run_wide_joins(dev)
 
     log_phase("[4] main path: phj_join 2^24 x 2^24")
     main_path = run_main_path(dev)
@@ -1061,6 +1188,8 @@ def main() -> int:
 
     log_phase("[7] main path: partitioned probe join 2^24 x 2^24")
     probe_join = run_probe_join(dev)
+    err["partitioned_probe"] = max(err["partitioned_probe"],
+                                   check_wide_probe(dev)["partitioned_probe"])
 
     log_phase("[8] main path: co-processed SHJ and join variants")
     shj = run_shj(dev)
@@ -1107,9 +1236,9 @@ def main() -> int:
         else:
             row = other_times[name]
             path = path_of[name]
-        if name == "flash_attn":
+        if name in ("flash_attn", "ssd_intra_chunk"):
             row["launches_by_variant"] = next(iter(lm["batches"].values()))[
-                "flash_attn_variants"]
+                f"{name}_variants"]
         record.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],

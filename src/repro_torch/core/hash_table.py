@@ -8,8 +8,8 @@ bit for bit.  Hazards the port keeps:
 
 * keys sort and compare as uint32 (``build_b2_order``, ``probe_p3``), so
   negative pad keys sort last;
-* JAX gathers clamp out-of-range indices; torch raises, so the clamps are
-  written out;
+* JAX's ``x[idx]`` clamps out-of-range indices (negatives wrap first);
+  torch raises, so the clamps are written out;
 * ``cumsum`` of int32 stays int32 (torch would promote to int64).
 """
 from __future__ import annotations

@@ -72,9 +72,12 @@ class Relation:
         return Relation(self.rid[lo:hi], self.key[lo:hi])
 
     def gather(self, idx) -> "Relation":
-        """Rows selected by index (the semijoin/materialization primitive)."""
+        """Rows selected by index (the semijoin/materialization primitive).
+
+        Out-of-range rows follow ``take_fill``: both columns read
+        ``INT32_MIN`` there, as ``jnp.take`` gives."""
         idx = torch.as_tensor(idx, device=self.device)
-        return Relation(self.rid[idx], self.key[idx])
+        return Relation(take_fill(self.rid, idx), take_fill(self.key, idx))
 
     def to(self, device) -> "Relation":
         return Relation(self.rid.to(device), self.key.to(device),
@@ -139,9 +142,39 @@ def probe_with_selectivity(build: Relation, n: int, *, selectivity: float,
 CHAIN_DEPTH_CAP = 4
 
 
-def _take_clipped(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``col[idx]`` with out-of-range indices clipped into range."""
-    return col[idx.clamp(0, max(col.shape[0] - 1, 0))]
+def _fill_value(dtype: torch.dtype):
+    """``jnp.take``'s fill for ``dtype``: NaN for floats, the least value
+    of a signed integer type, the greatest of an unsigned one (True for
+    bool)."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).min if dtype.is_signed \
+        else torch.iinfo(dtype).max
+
+
+def take_fill(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``col`` gathered along axis 0 with ``jnp.take``'s default "fill"
+    mode: an index ``-n <= i < 0`` wraps to ``i + n``; any other index out
+    of ``[0, n)`` reads the fill value (``INT32_MIN`` for int32).
+
+    Elementwise ops and one gather on the device, no host sync.  A
+    non-empty take from an empty column raises ``IndexError``, as
+    ``jnp.take`` does.
+    """
+    n = col.shape[0]
+    if n == 0:
+        if idx.numel():
+            raise IndexError("Cannot do a non-empty take from an empty "
+                             "axis.")
+        return col.new_empty(tuple(idx.shape) + tuple(col.shape[1:]))
+    idx = idx.to(col.device)
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    out = col[torch.where(ok, idx, 0)]
+    ok = ok.reshape(tuple(ok.shape) + (1,) * (col.dim() - 1))
+    return torch.where(ok, out, _fill_value(col.dtype))
 
 
 class IndexChain:
@@ -179,7 +212,7 @@ class IndexChain:
         if self._flat is None:
             f = self.links[0]
             for link in self.links[1:]:
-                f = _take_clipped(f, link)
+                f = take_fill(f, link)
             self._flat = f
         return self._flat
 
@@ -188,7 +221,7 @@ class IndexChain:
         col = torch.as_tensor(col)
         if not self.links:
             return col
-        return _take_clipped(col, self.flat())
+        return take_fill(col, self.flat())
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,9 @@
 //     few bins do not serialise 32 lanes on one counter;
 //   * up to SMEM_MAX_PARTS bins the counters live in shared memory per
 //     block and are merged into the global histogram once per block
-//     (non-zero bins only); wider histograms (up to 2^16 bins) add straight
-//     into global memory.
+//     (non-zero bins only); wider histograms (any number of bins, 2^17 and
+//     2^18 for a pass schedule past 16 bits) add straight into global
+//     memory.
 // Integer addition commutes, so the histogram does not depend on the order
 // of the atomics: the result is deterministic.
 #include <cuda_runtime.h>
@@ -29,7 +30,7 @@ constexpr int SMEM_MAX_PARTS = 1 << 13;  // 32 KiB of shared memory
 template <bool kShared>
 __global__ void hist_kernel(const int32_t* __restrict__ pid,
                             int32_t* __restrict__ hist, long long n,
-                            int num_parts) {
+                            long long num_parts) {
   extern __shared__ int32_t sh[];
   if (kShared) {
     for (int i = threadIdx.x; i < num_parts; i += blockDim.x) sh[i] = 0;
@@ -74,10 +75,11 @@ int num_sms() {
 
 }  // namespace
 
-// pid: (n,) int32; hist: (num_parts,) int32 out (zeroed here).
+// pid: (n,) int32; hist: (num_parts,) int32 out (zeroed here), num_parts
+// >= 1.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int radix_hist(const int32_t* pid, int32_t* hist, long long n,
-                          int num_parts, void* stream) {
+                          long long num_parts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       cudaMemsetAsync(hist, 0, sizeof(int32_t) * num_parts, s);

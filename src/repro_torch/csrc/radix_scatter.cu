@@ -34,7 +34,8 @@
 // spend one 32-byte sector per 4-byte store.  The loads are coalesced
 // 128-byte warp loads, all of a thread's issued before its first use.
 //
-// Wider fanouts (12-16 bits), whose 8 x P counters would not leave room
+// Wider fanouts (12 bits and up: 2^17 and 2^18 partitions for a pass
+// schedule past 16 bits), whose 8 x P counters would not leave room
 // for the staged tile, keep the device-memory path: one warp per tile of
 // 8 P tuples walks its tile 32 tuples at a time with the same
 // __match_any_sync ranking, its cursors in the tile's own column of offs,
@@ -274,7 +275,7 @@ __global__ void tile_hist_device(const int32_t* __restrict__ pid,
 // One warp per partition row: offs[p, :] <- starts[p] + exclusive scan.
 __global__ void tile_scan_warps(int32_t* __restrict__ offs,
                                 const int32_t* __restrict__ starts,
-                                int num_parts, long long tiles) {
+                                long long num_parts, long long tiles) {
   const int lane = threadIdx.x & 31;
   const long long p =
       static_cast<long long>(blockIdx.x) * SCAN_WARPS + (threadIdx.x >> 5);
@@ -350,28 +351,30 @@ extern "C" int radix_scatter(const int32_t* rid, const int32_t* key,
                              long long tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  const int num_parts = 1 << bits;
+  if (bits < 0 || bits > 31) return static_cast<int>(cudaErrorInvalidValue);
+  const long long num_parts = 1LL << bits;
   const bool shared = num_parts <= SHARED_MAX_PARTS;
   if (tile < 1 || (shared && tile != TILE))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = (n + tile - 1) / tile;
   cudaError_t err;
   if (shared) {
+    const int parts = static_cast<int>(num_parts);
     tile_hist_shared<<<static_cast<unsigned>(tiles), THREADS,
-                       sizeof(int32_t) * num_parts, s>>>(pid, offs, n,
-                                                         num_parts, tiles);
+                       sizeof(int32_t) * parts, s>>>(pid, offs, n, parts,
+                                                     tiles);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
-    tile_scan_rows<<<num_parts, THREADS, 0, s>>>(offs, starts, tiles);
+    tile_scan_rows<<<parts, THREADS, 0, s>>>(offs, starts, tiles);
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
-    const size_t smem = scatter_smem(num_parts);
+    const size_t smem = scatter_smem(parts);
     err = cudaFuncSetAttribute(scatter_shared,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     scatter_shared<<<static_cast<unsigned>(tiles), THREADS, smem, s>>>(
-        rid, key, pid, offs, out_rid, out_key, n, num_parts, tiles);
+        rid, key, pid, offs, out_rid, out_key, n, parts, tiles);
     return static_cast<int>(cudaGetLastError());
   }
   const unsigned blocks =
@@ -381,7 +384,8 @@ extern "C" int radix_scatter(const int32_t* rid, const int32_t* key,
   tile_hist_device<<<blocks, 32 * WIDE_WARPS, 0, s>>>(pid, offs, n, tile,
                                                       tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  tile_scan_warps<<<(num_parts + SCAN_WARPS - 1) / SCAN_WARPS,
+  tile_scan_warps<<<static_cast<unsigned>((num_parts + SCAN_WARPS - 1) /
+                                          SCAN_WARPS),
                     32 * SCAN_WARPS, 0, s>>>(offs, starts, num_parts, tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   scatter_device<<<blocks, 32 * WIDE_WARPS, 0, s>>>(

@@ -6,6 +6,9 @@ into its own shared library with a plain C interface and loaded with
 package (``REPRO_TORCH_BUILD_DIR`` overrides it); a library's file name
 carries a hash of its source and flags, so an edited source rebuilds.
 ``build_all`` compiles every source at once, one ``nvcc`` process each.
+A build may add ``-D`` flags (``defines``): the library then gets a name
+of its own, so ``tools/check_hopper_kernels.py`` can load a probing build
+of a kernel beside the one every path uses.
 
 Nothing here runs at import time: the package imports on a host with no
 ``nvcc`` and no card.
@@ -27,7 +30,7 @@ SOURCES = ("partition_hist_fused", "radix_scatter", "seg_agg", "hash_bucket",
            "radix_hist", "partitioned_probe", "flash_attn", "ssd_intra_chunk")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
@@ -46,20 +49,22 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS + tuple(defines))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines: tuple[str, ...] = ()):
     """Start ``nvcc`` for one source; None when the library is built."""
-    out = _lib_path(name)
+    out = _lib_path(name, defines)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -77,10 +82,10 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, out)  # atomic: a reader sees a whole library or none
 
 
-def build_all(names=SOURCES) -> None:
+def build_all(names=SOURCES, defines: tuple[str, ...] = ()) -> None:
     """Compile every named source in parallel (one nvcc each)."""
     with _lock:
-        started = {n: _start(n) for n in names}
+        started = {n: _start(n, defines) for n in names}
         errors = []
         for n, s in started.items():
             try:
@@ -91,15 +96,16 @@ def build_all(names=SOURCES) -> None:
             raise RuntimeError("\n".join(errors))
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    lib = _libs.get(name)
+    key = (name, tuple(defines))
+    lib = _libs.get(key)
     if lib is None:
-        build_all((name,))
+        build_all((name,), key[1])
         with _lock:
-            lib = _libs.get(name)
+            lib = _libs.get(key)
             if lib is None:
-                lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+                lib = _libs[key] = ctypes.CDLL(str(_lib_path(*key)))
     return lib
 
 

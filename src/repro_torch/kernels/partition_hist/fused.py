@@ -11,10 +11,11 @@ import ctypes
 
 import torch
 
+from .partition_hist import radix_hist_plain
+
 MURMUR_C1 = 0x85EBCA6B
 MURMUR_C2 = 0xC2B2AE35
 _MASK32 = 0xFFFFFFFF
-MAX_BITS = 16  # widest digit the kernel takes (2^16 bins)
 
 launches = 0  # kernel launches since the last reset
 
@@ -43,10 +44,12 @@ def fmix32_int64(x: torch.Tensor) -> torch.Tensor:
 
 
 def partition_hist_fused_plain(keys: torch.Tensor, *, shift: int, bits: int):
-    """Plain version: ``(pid, hist)`` for hash bits ``[shift, shift+bits)``."""
+    """Plain version: ``(pid, hist)`` for hash bits ``[shift, shift+bits)``.
+
+    At ``bits = 32`` a pid with its top bit set is negative as int32 and,
+    as in the JAX package's ``segment_sum``, is not counted."""
     pid = ((fmix32_int64(keys) >> shift) & ((1 << bits) - 1)).to(torch.int32)
-    hist = torch.bincount(pid, minlength=1 << bits).to(torch.int32)
-    return pid, hist
+    return pid, radix_hist_plain(pid, num_parts=1 << bits)
 
 
 def _check(name: str, t: torch.Tensor) -> None:
@@ -56,14 +59,19 @@ def _check(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be a contiguous 1-D tensor")
 
 
-def partition_hist_fused(keys: torch.Tensor, *, shift: int, bits: int):
+def partition_hist_fused(keys: torch.Tensor, *, shift: int, bits: int,
+                         defines: tuple[str, ...] = ()):
     """``(pid, hist)`` of the ``bits``-wide hash digit at ``shift``.
 
     keys: (n,) int32.  Returns pid (n,) int32 and hist (2**bits,) int32.
+    Any digit the JAX package takes is accepted: ``1 <= bits`` and
+    ``shift + bits <= 32``.  ``defines`` are extra ``-D`` flags for a
+    build of the kernel that ``tools/check_hopper_kernels.py`` compares
+    (empty on every path).
     """
-    if not 1 <= bits <= MAX_BITS or shift < 0 or shift + bits > 32:
-        raise ValueError(f"need 1 <= bits <= {MAX_BITS} and "
-                         f"shift + bits <= 32: shift={shift}, bits={bits}")
+    if bits < 1 or shift < 0 or shift + bits > 32:
+        raise ValueError(f"need 1 <= bits and shift + bits <= 32: "
+                         f"shift={shift}, bits={bits}")
     if keys.device.type == "cpu":
         return partition_hist_fused_plain(keys, shift=shift, bits=bits)
     if keys.device.type != "cuda":
@@ -71,7 +79,7 @@ def partition_hist_fused(keys: torch.Tensor, *, shift: int, bits: int):
     _check("keys", keys)
     from .._build import check, load
 
-    lib = load("partition_hist_fused")
+    lib = load("partition_hist_fused", defines)
     fn = lib.partition_hist_fused
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,

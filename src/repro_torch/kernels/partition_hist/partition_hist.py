@@ -13,8 +13,6 @@ import ctypes
 
 import torch
 
-MAX_PARTS = 1 << 16  # MAX_TOTAL_BITS of the pass planner
-
 launches = 0  # kernel launches since the last reset
 
 
@@ -30,11 +28,11 @@ def radix_hist_plain(pid: torch.Tensor, *, num_parts: int) -> torch.Tensor:
 def radix_hist(pid: torch.Tensor, *, num_parts: int) -> torch.Tensor:
     """Histogram of ``pid`` over ``num_parts`` bins.
 
-    pid: (n,) int32; num_parts in [1, 2^16].  Returns (num_parts,) int32;
-    pids outside ``[0, num_parts)`` are not counted.
+    pid: (n,) int32; num_parts >= 1.  Returns (num_parts,) int32; pids
+    outside ``[0, num_parts)`` are not counted.
     """
-    if not 1 <= num_parts <= MAX_PARTS:
-        raise ValueError(f"num_parts must be in [1, 2^16]: {num_parts}")
+    if num_parts < 1:
+        raise ValueError(f"num_parts must be at least 1: {num_parts}")
     if pid.device.type == "cpu":
         return radix_hist_plain(pid, num_parts=num_parts)
     if pid.device.type != "cuda":
@@ -47,7 +45,7 @@ def radix_hist(pid: torch.Tensor, *, num_parts: int) -> torch.Tensor:
 
     fn = load("radix_hist").radix_hist
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     hist = torch.empty(num_parts, dtype=torch.int32, device=pid.device)
     with torch.cuda.device(pid.device):

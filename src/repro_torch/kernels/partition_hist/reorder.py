@@ -55,9 +55,8 @@ def radix_scatter(rid: torch.Tensor, key: torch.Tensor, pid: torch.Tensor,
     (num_parts,) int32, the exclusive scan of pid's histogram.  Returns the
     reordered ``(rid, key)``, bit-identical to a stable sort by pid.
     """
-    if num_parts < 1 or num_parts & (num_parts - 1) or num_parts > 1 << 16:
-        raise ValueError(f"num_parts must be a power of two <= 2^16: "
-                         f"{num_parts}")
+    if num_parts < 1 or num_parts & (num_parts - 1):
+        raise ValueError(f"num_parts must be a power of two: {num_parts}")
     devices = {t.device for t in (rid, key, pid, starts)}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")

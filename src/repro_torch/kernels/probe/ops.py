@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..partition_hist.partition_hist import MAX_PARTS, radix_hist
+from ..partition_hist.partition_hist import radix_hist
 from .probe import PAD_KEY, _u32, probe
 
 __all__ = ["build_partitioned_table", "probe"]
@@ -53,8 +53,6 @@ def build_partitioned_table(build, probe_rel, *, total_bits: int):
     from repro_torch.core.relation import radix_of
 
     p = 1 << total_bits
-    if p > MAX_PARTS:
-        raise ValueError(f"total_bits must be at most 16: {total_bits}")
     if build.device != probe_rel.device:
         raise ValueError(f"relations on {build.device} and "
                          f"{probe_rel.device}")

@@ -13,6 +13,12 @@ it runs ``ssd_intra_chunk_plain``, the JAX oracle ``ssd_intra_chunk_ref``
 Output dtype: float32 always, what ``ssd_chunked`` needs (it adds the
 inter-chunk term before it casts).  The Pallas kernel and its oracle
 return x's dtype; the port's tests compare against them cast to float32.
+
+The kernel has two variants, chosen by ``variant_for`` from the dtype
+alone: ``wgmma`` (bfloat16: both products on the tensor cores, operands
+brought in by TMA) and ``cuda_cores`` (float32, which TF32 would round
+past its 2e-4 limit).  ``launches_by_variant`` counts each.  A caller may
+ask for ``cuda_cores`` on bfloat16 inputs too, to compare the two.
 """
 from __future__ import annotations
 
@@ -24,8 +30,19 @@ HEAD_DIMS = (16, 32, 64)
 STATE_DIMS = (16, 64, 128)
 MAX_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("cuda_cores", "wgmma")   # the kernel's codes 0-1
 
 launches = 0  # kernel launches since the last reset
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def variant_for(dtype: torch.dtype) -> str:
+    """The kernel variant that serves inputs of ``dtype``."""
+    if dtype == torch.float32:
+        return "cuda_cores"
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    raise TypeError(f"no kernel variant for {dtype}")
 
 
 def ssd_intra_chunk_plain(x, dt, b, c, a) -> torch.Tensor:
@@ -36,7 +53,9 @@ def ssd_intra_chunk_plain(x, dt, b, c, a) -> torch.Tensor:
 
     dtf = dt.float()
     da = dtf * a.float()
-    l_mat = torch.exp(_segsum(da.permute(0, 1, 3, 2)))      # (B,NC,H,Q,Q)
+    # The exponential in float64: PyTorch's multi-threaded float32 exp on
+    # the CPU is off by up to 1e-4 in some processes.
+    l_mat = torch.exp(_segsum(da.permute(0, 1, 3, 2)).double()).float()
     scores = torch.einsum("bcqn,bckn->bcqk", c.float(), b.float())
     m = scores[:, :, None] * l_mat
     return torch.einsum("bchqk,bckh,bckhp->bcqhp", m, dtf, x.float())
@@ -61,10 +80,14 @@ def _check(x, dt, b, c, a) -> None:
 
 
 def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
-                    c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+                    c: torch.Tensor, a: torch.Tensor, *,
+                    variant: str | None = None,
+                    defines: tuple[str, ...] = ()) -> torch.Tensor:
     """Y_intra (B, NC, Q, H, P) float32 of x (B, NC, Q, H, P); dt
     (B, NC, Q, H) float32; b, c (B, NC, Q, N) of x's dtype; a (H,)
-    float32 (negative)."""
+    float32 (negative).  ``variant`` defaults to ``variant_for(x.dtype)``;
+    ``defines`` are extra ``-D`` flags for a build of the kernel that
+    ``tools/check_hopper_kernels.py`` compares (empty on every path)."""
     _check(x, dt, b, c, a)
     dev = x.device
     if dev.type == "cpu":
@@ -85,24 +108,41 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"head_dim {p} is not one of {HEAD_DIMS}")
     if n not in STATE_DIMS:
         raise ValueError(f"d_state {n} is not one of {STATE_DIMS}")
-    if bs * nc > 65535:
+    variant = variant_for(x.dtype) if variant is None else variant
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}")
+    if variant == "wgmma" and x.dtype != torch.bfloat16:
+        raise TypeError(f"the wgmma variant takes bfloat16, got {x.dtype}")
+    if variant == "cuda_cores" and bs * nc > 65535:
         raise ValueError(f"batch x chunks {bs * nc} above 65535")
     for name, t in (("x", x), ("dt", dt), ("b", b), ("c", c), ("a", a)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    from .._build import check, load
+        if variant == "wgmma" and name in "xbc" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(TMA)")
+    from .._build import check
 
-    fn = load("ssd_intra_chunk").ssd_intra_chunk
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5 + \
-        [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty(x.shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
-                 a.data_ptr(), out.data_ptr(), bs * nc, q, h, p, n,
-                 _DTYPES[x.dtype], stream)
-    check(err, "ssd_intra_chunk")
+        err = _kernel(defines)(
+            x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
+            a.data_ptr(), out.data_ptr(), bs * nc, q, h, p, n,
+            _DTYPES[x.dtype], VARIANTS.index(variant), stream)
+    check(err, f"ssd_intra_chunk ({variant})")
     global launches
     launches += 1
+    launches_by_variant[variant] += 1
     return out
+
+
+def _kernel(defines: tuple[str, ...] = ()):
+    """``ssd_intra_chunk`` of ``csrc/ssd_intra_chunk.cu``, typed."""
+    from .._build import load
+
+    fn = load("ssd_intra_chunk", defines).ssd_intra_chunk
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5 + \
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn

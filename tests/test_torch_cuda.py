@@ -335,6 +335,98 @@ def test_ssd_intra_chunk_matches_plain_version(dev, bs, nc, q, h, p, n,
     _close(got, kssd.ssd_intra_chunk_plain(x, dt, b, c, a), tol)
 
 
+# chip_smoke.py's GRID_H (Zamba2's prefill, Mamba2-2.7B's N = 128 and a
+# ragged chunk of 37) and a one-row chunk.
+GRID_H_VARIANTS = [(2, 3, 64, 4, 32, 16), (1, 2, 128, 8, 64, 64),
+                   (1, 2, 128, 4, 64, 128), (4, 8, 256, 64, 64, 64),
+                   (1, 4, 256, 80, 64, 128), (2, 1, 37, 64, 64, 64),
+                   (1, 1, 1, 2, 16, 64)]
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "cuda_cores"])
+@pytest.mark.parametrize("bs,nc,q,h,p,n", GRID_H_VARIANTS)
+def test_ssd_intra_chunk_variants_match_plain_version(dev, bs, nc, q, h, p,
+                                                      n, variant):
+    """Both variants of kernel H on bfloat16 inputs (wgmma is the one
+    that serves them), within tests/test_kernels.py's 3e-2."""
+    g = torch.Generator(device=dev).manual_seed(q + n + h)
+    x = torch.randn(bs, nc, q, h, p, generator=g, device=dev).bfloat16()
+    dt = torch.rand(bs, nc, q, h, generator=g, device=dev) * 0.19 + 0.01
+    b = torch.randn(bs, nc, q, n, generator=g, device=dev).bfloat16()
+    c = torch.randn(bs, nc, q, n, generator=g, device=dev).bfloat16()
+    a = -torch.exp(torch.randn(h, generator=g, device=dev) * 0.3)
+    before = dict(kssd.launches_by_variant)
+    got = kssd.ssd_intra_chunk(x, dt, b, c, a, variant=variant)
+    assert kssd.launches_by_variant[variant] == before[variant] + 1
+    _close(got, kssd.ssd_intra_chunk_plain(x, dt, b, c, a), 3e-2)
+
+
+def test_ssd_intra_chunk_variants_by_dtype(dev):
+    reset_launch_counts()
+    x = torch.randn(1, 2, 64, 2, 64, device=dev)
+    dt = torch.rand(1, 2, 64, 2, device=dev)
+    bc = torch.randn(1, 2, 64, 16, device=dev)
+    a = -torch.rand(2, device=dev)
+    kssd.ssd_intra_chunk(x, dt, bc, bc, a)
+    kssd.ssd_intra_chunk(x.bfloat16(), dt, bc.bfloat16(), bc.bfloat16(), a)
+    assert kssd.launches_by_variant == {"cuda_cores": 1, "wgmma": 1}
+    with pytest.raises(TypeError):                # wgmma takes bfloat16
+        kssd.ssd_intra_chunk(x, dt, bc, bc, a, variant="wgmma")
+    with pytest.raises(ValueError):               # TMA's 16-byte base
+        xs = torch.zeros(2 * 64 * 2 * 64 + 1, device=dev,
+                         dtype=torch.bfloat16)[1:].view(1, 2, 64, 2, 64)
+        kssd.ssd_intra_chunk(xs, dt, bc.bfloat16(), bc.bfloat16(), a)
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, (1 << 20) + 3])
+@pytest.mark.parametrize("bits", [1, 2, 7, 13, 17, 18])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_partition_hist_fused_digits_match_plain_version(dev, bits, n,
+                                                         aligned):
+    """Kernel A at narrow (match aggregation), shared-memory and global
+    (17-18 bits) histograms, on vectors that end past the last whole int4
+    and on keys 4 bytes past an aligned address (the scalar path)."""
+    rng = np.random.default_rng(n + bits)
+    base = torch.from_numpy(_ints(rng, n + 1)).to(dev)
+    keys = base[:n] if aligned else base[1:]
+    shift = 0 if bits > 13 else 7
+    got = fused.partition_hist_fused(keys, shift=shift, bits=bits)
+    want = fused.partition_hist_fused_plain(keys, shift=shift, bits=bits)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("bits", [17, 18])
+def test_wide_partitions_match_plain_versions(dev, bits):
+    """Kernels B (device-memory cursors) and E (global histogram) at 2^17
+    and 2^18 partitions."""
+    p, n = 1 << bits, (1 << 20) + 7
+    rng = np.random.default_rng(bits)
+    pid = torch.from_numpy(rng.integers(0, p, n).astype(np.int32)).to(dev)
+    spill = torch.from_numpy(rng.integers(-3, p + 3, n)
+                             .astype(np.int32)).to(dev)
+    assert torch.equal(partition_hist.radix_hist(spill, num_parts=p),
+                       partition_hist.radix_hist_plain(spill, num_parts=p))
+    rid = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+    key = torch.from_numpy(_ints(rng, n)).to(dev)
+    hist = partition_hist.radix_hist(pid, num_parts=p)
+    starts = torch.cumsum(hist, 0, dtype=torch.int32) - hist
+    got = reorder.radix_scatter(rid, key, pid, starts, num_parts=p)
+    want = reorder.radix_scatter_plain(rid, key, pid)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("sched", [(17,), (9, 9)])
+def test_wide_phj_join_on_card_equals_cpu(dev, sched):
+    """phj_join over pass schedules past 16 bits, card against CPU."""
+    b = tc.uniform_relation(1 << 14, seed=1, device="cpu")
+    s_ = tc.uniform_relation(1 << 14, seed=2, device="cpu")
+    want = tc.phj_join(b, s_, schedule=sched, max_out=1 << 16)
+    got = tc.phj_join(b.to(dev), s_.to(dev), schedule=sched,
+                      max_out=1 << 16)
+    assert np.array_equal(got.valid_pairs(), want.valid_pairs())
+    assert np.array_equal(want.valid_pairs(), tc.join_oracle(b, s_))
+
+
 @pytest.mark.parametrize("sq", [1, 127, 128, 129, 1000, 2048])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("causal", [True, False])

@@ -151,11 +151,32 @@ def test_partition_series_steps_match(rng):
                     [tsh[k] for k in sorted(tsh)])
 
 
-@pytest.mark.parametrize("shift,bits", [(0, 0), (0, 17), (20, 13), (-1, 4)])
+@pytest.mark.parametrize("shift,bits", [(0, 0), (0, 33), (20, 13), (-1, 4)])
 def test_pass_rejects_bad_digits(shift, bits):
     _, tr = relation(np.arange(64))
     with pytest.raises(ValueError):
         fused_partition_pass(tr, shift=shift, bits=bits)
+
+
+@pytest.mark.parametrize("n,shift,bits", [(4096, 0, 17), (3001, 7, 18),
+                                          (2048, 14, 18), (1000, 0, 20)])
+def test_wide_digit_pass_matches_jnp_path(n, shift, bits, rng):
+    """Digits wider than 16 bits (the reference takes any shift + bits <=
+    32): pid, histogram and the stable reorder, bit for bit."""
+    jr, tr = _rel(rng, n)
+    want = j_pass(jr, shift=shift, bits=bits, use_pallas=False)
+    got = fused_partition_pass(tr, shift=shift, bits=bits)
+    assert_same(want, got)
+    assert got[2].shape == (1 << bits,)
+
+
+@pytest.mark.parametrize("sched", [(17,), (9, 9), (1, 17)])
+def test_wide_schedules_match(sched, rng):
+    jr, tr = _rel(rng, 4096)
+    want = jc.radix_partition_scheduled(jr, schedule=sched)
+    got = tc.radix_partition_scheduled(tr, schedule=sched)
+    assert_same(want, got)
+    assert got.num_partitions == 1 << sum(sched)
 
 
 def test_kernel_wrappers_reject_other_devices():

@@ -39,6 +39,18 @@ def test_phj_join_matches(kind, sched):
     assert np.array_equal(got.valid_pairs(), exp)
 
 
+@pytest.mark.parametrize("sched", [(17,), (9, 9)])
+def test_phj_join_wide_schedules_match(sched):
+    """Radix digits wider than 16 bits: the JoinResult equals the JAX
+    package's and the oracle (4160 pairs on the uniform data)."""
+    jb, jp, tb, tp, exp = _data("uniform")
+    want = jc.phj_join(jb, jp, schedule=sched, max_out=20000)
+    got = tc.phj_join(tb, tp, schedule=sched, max_out=20000)
+    assert_same(want, got)
+    assert np.array_equal(got.valid_pairs(), exp)
+    assert int(got.count) == len(exp) == 4160
+
+
 def test_phj_join_truncates_like_reference():
     jb, jp, tb, tp, exp = _data("high_skew")
     mo = len(exp) // 3

@@ -147,7 +147,27 @@ def test_probe_rejects_bad_layouts():
         tprobe.probe(tk[0], tk[0], tk[0])
     b = tc.unique_relation(64, seed=1, device="cpu")
     with pytest.raises(ValueError):
-        tops.build_partitioned_table(b, b, total_bits=17)
+        tops.build_partitioned_table(b, b, total_bits=-1)
+
+
+def test_wide_layout_and_probe_match():
+    """total_bits = 17 (2^17 partitions, past the old 2^16 cap): the
+    layout equals the JAX package's, the probe its jnp reference, and the
+    matches the join oracle."""
+    (jb, tb), (jp, tp) = _relations(1024, 2048, "duplicates", seed=17)
+    want = jops.build_partitioned_table(jb, jp, total_bits=17)
+    got = tops.build_partitioned_table(tb, tp, total_bits=17)
+    for w, g in zip(want, got):
+        _same(w, g)
+    rid = tops.probe(*got[:3])
+    _same(j_probe_ref(*want[:3]), rid)
+    pairs = np.stack([got[3].numpy().ravel(), rid.numpy().ravel()], 1)
+    pairs = pairs[pairs[:, 1] >= 0]
+    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    # Each probe tuple finds the leftmost of its key's duplicates.
+    exp = tc.join_oracle(tb, tp)
+    first = exp[np.r_[True, exp[1:, 0] != exp[:-1, 0]]]
+    assert np.array_equal(pairs, first)
 
 
 def test_probe_layout_of_empty_sides():

@@ -1,19 +1,34 @@
-"""Build, check and time kernels G (flash attention) and B (radix
-scatter) on one CUDA card.
+"""Build, check and time the redesigned kernels G (flash attention), B
+(radix scatter), H (SSD intra-chunk) and A (fused radix digit +
+histogram) on one CUDA card.
 
-    python3 tools/check_hopper_kernels.py [--ptxas] [--quick]
+    python3 tools/check_hopper_kernels.py [--ptxas] [--quick] [--only G,B,H,A]
+                                          [--probe]
 
-With ``--ptxas`` it first compiles ``csrc/flash_attn.cu`` and
-``csrc/radix_scatter.cu`` once more with ``nvcc -Xptxas -v`` and prints
-each kernel's registers, shared memory and spills.  Then it holds G
-against ``flash_attention_plain`` (2e-2 bf16, 3e-5 f32) and B against
-``radix_scatter_plain`` (bit for bit) over a small grid of shapes, and
-times both at the main paths' shapes beside their library calls:
-G at (4, 2048, 32, 64) and (1, 2048, 2048, 32, 8, 128) bf16 causal
-against ``scaled_dot_product_attention``, B at 2^24 tuples for 7 and 6
-bits against a stable ``torch.sort`` + 2 gathers.  ``--quick`` stops
-after the checks.  Prints the card's name and power limit first.  Needs a
-CUDA card.
+With ``--ptxas`` it first compiles each chosen kernel's source once more
+with ``nvcc -Xptxas -v`` and prints each kernel's registers, shared
+memory and spills.  Then it holds G against ``flash_attention_plain``
+(2e-2 bf16, 3e-5 f32), H against ``ssd_intra_chunk_plain`` (3e-2 +
+3e-2 |want| bf16, 2e-4 f32, both variants, printing the largest error as
+a share of that limit), and A, B and E against their plain versions (bit
+for bit, digits past 16 bits too) over small grids of shapes, and times
+them at the main paths' shapes beside their library calls: G at
+(4, 2048, 32, 64) and (1, 2048, 2048, 32, 8, 128) bf16 causal against
+``scaled_dot_product_attention``, B at 2^24 tuples for 7 and 6 bits
+against a stable ``torch.sort`` + 2 gathers, H at Zamba2's prefill shape
+x (4, 8, 256, 64, 64), N 64, bf16 against two ``torch.matmul`` around
+the decay mask, A at 2^24 keys for 7 and 6 bits against ``torch.bincount``
+of the finished pids.  ``--probe`` also checks and times the builds the
+designs were chosen against (``-D`` flags of their sources, built beside
+the ones every path uses): H with W rounded to bf16 once, on the CUDA
+cores, with three consumer warpgroups, with one exponential per entry
+of W, and, for timing only (their Y is wrong), without exponentials, on
+half the SMs, and with clock64() stamps of each part of a head; A with
+a match aggregation for narrow digits and with other block sizes and
+loads in flight; beside PyTorch's own copies of the same bytes
+(``x.float()`` for H, ``keys.clone()`` for A).  ``--quick`` stops after
+the checks.  Prints the card's name and power limit first.  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -32,7 +47,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
+from repro_torch.kernels.partition_hist import fused  # noqa: E402
+from repro_torch.kernels.partition_hist import partition_hist  # noqa: E402
 from repro_torch.kernels.partition_hist import reorder  # noqa: E402
+from repro_torch.kernels.ssd import ssd as kssd  # noqa: E402
 
 G_CHECK = ((1, 128, 128, 2, 2, 64, True), (1, 128, 128, 2, 2, 128, True),
            (2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
@@ -40,22 +58,45 @@ G_CHECK = ((1, 128, 128, 2, 2, 64, True), (1, 128, 128, 2, 2, 128, True),
            (1, 1, 1, 2, 1, 64, True), (4, 2048, 2048, 32, 32, 64, True),
            (1, 2048, 2048, 32, 8, 128, True))
 B_CHECK = ((4095, 7), (4097, 6), (3 * 4096 + 17, 1), (1_000_003, 7),
-           (1 << 22, 11), (1 << 20, 13))
+           (1 << 22, 11), (1 << 20, 13), (1 << 20, 17), ((1 << 20) + 3, 18))
+# (B, NC, Q, H, P, N): chip_smoke.py's GRID_H, one chunk of one row and
+# a ragged chunk of 129 rows at N = 128.
+H_CHECK = ((2, 3, 64, 4, 32, 16), (1, 2, 128, 8, 64, 64),
+           (1, 2, 128, 4, 64, 128), (4, 8, 256, 64, 64, 64),
+           (1, 4, 256, 80, 64, 128), (2, 1, 37, 64, 64, 64),
+           (1, 1, 1, 2, 16, 64), (1, 3, 129, 6, 64, 128))
+H_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}   # test_kernels.py:128
+A_BITS = (1, 2, 3, 7, 13, 14, 15, 17, 18)
+A_SIZES = (0, 1, 5, 4099, (1 << 20) + 3)
+H_SINGLE_W = ("-DSSD_SPLIT_W=0",)      # W rounded to bf16 once
+# Builds the design was chosen against: three consumer warpgroups, the
+# decay as one exponential per entry, and (timing only, a wrong Y) no
+# exponentials at all and half the SMs.
+H_PROBES = (("-DSSD_CONSUMERS=3",), ("-DSSD_FACTOR_EXP=0",),
+            ("-DSSD_PROBE=2",), ("-DSSD_GRID_CAP=66",))
+# A's other block sizes and int4 loads in flight per thread.
+A_PROBES = (("-DA_THREADS=256",), ("-DA_THREADS=1024",), ("-DA_U=2",),
+            ("-DA_U=8",))
+A_MATCH = ("-DMATCH_MAX_BITS=3",)   # __match_any_sync up to 3 bits
+HBM = 3.35e12
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Milliseconds per call: CUDA events around ``reps`` calls enqueued
+    back to back (chip_smoke.py's method), the median of three runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -164,11 +205,198 @@ def time_b() -> None:
               f"{20 * n / 3.35e12 * 1e3:.5f} ms", flush=True)
 
 
+def h_inputs(shape, dtype, seed):
+    """chip_smoke.py's inputs for H: dt in [0.01, 0.2], a = -exp(0.3 z)."""
+    bs, nc, q, h, p, n = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(bs, nc, q, h, p, generator=g, device="cuda").to(dtype),
+            torch.rand(bs, nc, q, h, generator=g, device="cuda") * 0.19 + 0.01,
+            torch.randn(bs, nc, q, n, generator=g, device="cuda").to(dtype),
+            torch.randn(bs, nc, q, n, generator=g, device="cuda").to(dtype),
+            -torch.exp(torch.randn(h, generator=g, device="cuda") * 0.3))
+
+
+def h_share(got, want, tol: float) -> tuple[float, float]:
+    """Largest |got - want| and its largest share of the limit
+    tol + tol |want| (1.0 = at the limit)."""
+    diff = (got - want).abs()
+    return float(diff.max()), float((diff / (tol + tol * want.abs())).max())
+
+
+def check_h(probe: bool) -> None:
+    runs = [(torch.bfloat16, "wgmma", ()), (torch.float32, "cuda_cores", ()),
+            (torch.bfloat16, "cuda_cores", ())]
+    if probe:
+        runs.append((torch.bfloat16, "wgmma", H_SINGLE_W))
+    for dtype, variant, defines in runs:
+        worst = 0.0
+        for i, shape in enumerate(H_CHECK):
+            args = h_inputs(shape, dtype, i)
+            got = kssd.ssd_intra_chunk(*args, variant=variant,
+                                       defines=defines)
+            want = kssd.ssd_intra_chunk_plain(*args)
+            torch.cuda.synchronize()
+            err, share = h_share(got, want, H_TOL[dtype])
+            ok = bool(torch.isfinite(got).all()) and share <= 1.0
+            worst = max(worst, share)
+            print(f"H {shape} {dtype} {variant} {' '.join(defines)}: max abs "
+                  f"err {err:.4g}, {share:.4f} of the limit "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            # A probing build is measured, not held to the limit.
+            assert ok or defines, (shape, dtype, variant, defines)
+        print(f"H {dtype} {variant} {' '.join(defines)}: largest share of "
+              f"the limit {worst:.4f}", flush=True)
+
+
+def check_a(probe: bool) -> None:
+    rng = np.random.default_rng(11)
+    for defines in ((), A_MATCH) if probe else ((),):
+        for n in A_SIZES:
+            keys = torch.from_numpy(rng.integers(-2**31, 2**31, n + 1)
+                                    .astype(np.int32)).cuda()
+            for bits in A_BITS:
+                shift = 0 if bits > 13 else 7
+                # keys[1:] starts 4 bytes past an aligned base: the scalar
+                # path; keys[:n] the vector path and its tail.
+                for name, k in (("aligned", keys[:n]), ("offset", keys[1:])):
+                    got = fused.partition_hist_fused(k, shift=shift,
+                                                     bits=bits,
+                                                     defines=defines)
+                    want = fused.partition_hist_fused_plain(k, shift=shift,
+                                                            bits=bits)
+                    ok = all(torch.equal(a, b) for a, b in zip(got, want))
+                    if not ok or n > 4099:
+                        print(f"A n={n} bits={bits} {name} "
+                              f"{' '.join(defines)}: "
+                              f"{'bit-exact' if ok else 'FAIL'}", flush=True)
+                    assert ok, (n, bits, name, defines)
+    print("A: every (n, bits, alignment) case bit-exact", flush=True)
+
+
+def check_e_wide() -> None:
+    for p in (1 << 17, 1 << 18, (1 << 17) + 5):
+        pid = torch.randint(-3, p + 3, (1 << 20,), dtype=torch.int32,
+                            device="cuda")
+        ok = torch.equal(partition_hist.radix_hist(pid, num_parts=p),
+                         partition_hist.radix_hist_plain(pid, num_parts=p))
+        print(f"E n=2^20 P={p}: {'bit-exact' if ok else 'FAIL'}", flush=True)
+        assert ok, p
+
+
+def time_h(probe: bool) -> None:
+    shape = (4, 8, 256, 64, 64, 64)
+    bs, nc, q, h, p, n = shape
+    args = h_inputs(shape, torch.bfloat16, 98)
+    nbytes = sum(t.numel() * t.element_size() for t in args) + \
+        bs * nc * q * h * p * 4
+    flops = 2.0 * bs * nc * (q * (q + 1) // 2) * (n + h * p)
+    bound = max(nbytes / HBM, flops / 989e12) * 1e3
+    rows = [("wgmma", ())]
+    if probe:
+        rows += [("wgmma", H_SINGLE_W), ("cuda_cores", ())]
+        rows += [("wgmma", d) for d in H_PROBES]
+    for variant, defines in rows:
+        ms = cuda_ms(lambda: kssd.ssd_intra_chunk(*args, variant=variant,
+                                                  defines=defines))
+        print(f"H time x {shape[:5]} N {n} bf16 {variant} "
+              f"{' '.join(defines)}: {ms:.5f} ms, bound {bound:.6f} ms "
+              f"(bytes), {bound / ms:.3f} of it", flush=True)
+    if probe:
+        stamps_h(args)
+    x, dt, b, c, a = args
+
+    def lib():
+        dth = dt.permute(0, 1, 3, 2)
+        cs = torch.cumsum(dth * a[:, None], dim=-1)
+        tril = torch.tril(torch.ones(q, q, dtype=torch.bool, device="cuda"))
+        decay = torch.exp(cs[..., :, None] - cs[..., None, :]).masked_fill(
+            ~tril, 0.0)
+        g = torch.matmul(c.float(), b.float().transpose(-1, -2))
+        return torch.matmul(g[:, :, None] * decay * dth[..., None, :],
+                            x.float().permute(0, 1, 3, 2, 4))
+    if probe:  # the same bytes moved by PyTorch's own kernels
+        yy = torch.empty(x.shape, dtype=torch.float32, device="cuda")
+        print(f"H yardsticks: x.float() (reads x, writes Y's bytes) "
+              f"{cuda_ms(lambda: x.float()):.5f} ms, Y.fill_(1) "
+              f"{cuda_ms(lambda: yy.fill_(1.0)):.5f} ms", flush=True)
+    plain = cuda_ms(lambda: kssd.ssd_intra_chunk_plain(*args), reps=5)
+    print(f"H time plain {plain:.5f} ms, composite library "
+          f"{cuda_ms(lib, reps=5):.5f} ms", flush=True)
+
+
+def stamps_h(args) -> None:
+    """The -DSSD_PROBE=7 build: clock64() stamps of block 0's two consumer
+    warpgroups over its first heads (the cycles each part of a head
+    takes; the slots are listed at STAMPS in csrc/ssd_intra_chunk.cu)."""
+    y = kssd.ssd_intra_chunk(*args, defines=("-DSSD_PROBE=7",))
+    torch.cuda.synchronize()
+    h, p = args[0].shape[3], args[0].shape[4]
+    names = ["X wait"]
+    parts = [(0, 2)]
+    for t in range(2):
+        sb = 3 + 12 * t
+        names += [f"t{t} S0", f"t{t} W0", f"t{t} pack0", f"t{t} S1",
+                  f"t{t} W1", f"t{t} WX0 wait", f"t{t} pack1",
+                  f"t{t} step1", f"t{t} step2", f"t{t} last WX",
+                  f"t{t} Y stores"]
+        parts += [(sb, sb + 1), (sb + 1, sb + 2), (sb + 2, sb + 3),
+                  (sb + 3, sb + 4), (sb + 4, sb + 5), (sb + 5, sb + 6),
+                  (sb + 6, sb + 7), (sb + 7, sb + 8), (sb + 8, sb + 9),
+                  (sb + 9, sb + 10), (sb + 10, sb + 11)]
+    for w in range(2):
+        st = y[0, 0, w].reshape(-1)[:16 * 32 * 2].contiguous().view(
+            torch.int64).view(16, 32).cpu().numpy().astype(np.float64)
+        ok = st[:, 0] > 0
+        total = np.diff(st[ok, 0]).mean()
+        segs = []
+        for n, (a, b) in zip(names, parts):
+            # A slot the head did not reach holds whatever Y held.
+            d = st[:, b] - st[:, a]
+            sel = ok & (st[:, a] > 0) & (d >= 0) & (d < 1e6)
+            sel[0] = False   # the first head also waits for C and B
+            if sel.any():
+                segs.append(f"{n} {np.mean(st[sel, b] - st[sel, a]):.0f}")
+        print(f"H stamps warpgroup {w}: head {total:.0f} cycles; "
+              + ", ".join(segs), flush=True)
+
+
+def time_a(probe: bool) -> None:
+    n = 1 << 24
+    keys = torch.from_numpy(np.random.default_rng(6).integers(
+        -2**31, 2**31, n).astype(np.int32)).cuda()
+    for bits in (7, 6, 2, 1):
+        builds = [()]
+        if probe:
+            builds += [A_MATCH] if bits <= 3 else list(A_PROBES)
+        for defines in builds:
+            ms = cuda_ms(lambda: fused.partition_hist_fused(
+                keys, shift=0, bits=bits, defines=defines))
+            print(f"A time n=2^24 bits={bits} {' '.join(defines)}: "
+                  f"{ms:.5f} ms, bound {8 * n / HBM * 1e3:.6f} ms (bytes), "
+                  f"{8 * n / HBM * 1e3 / ms:.3f} of it", flush=True)
+        pid = fused.partition_hist_fused(keys, shift=0, bits=bits)[0]
+        lib = cuda_ms(lambda: torch.bincount(pid, minlength=1 << bits))
+        plain = cuda_ms(lambda: fused.partition_hist_fused_plain(
+            keys, shift=0, bits=bits), reps=5)
+        print(f"A time n=2^24 bits={bits}: plain {plain:.5f} ms, "
+              f"torch.bincount of the pids {lib:.5f} ms", flush=True)
+    if probe:
+        print(f"A yardstick: keys.clone() (the same bytes) "
+              f"{cuda_ms(lambda: keys.clone()):.5f} ms", flush=True)
+
+
+KERNELS = {"G": "flash_attn", "B": "radix_scatter", "H": "ssd_intra_chunk",
+           "A": "partition_hist_fused"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--only", default="G,B,H,A")
     args = ap.parse_args()
+    only = [k.strip() for k in args.only.split(",") if k.strip()]
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
@@ -177,16 +405,22 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(smi, "| torch", torch.__version__, "cuda", torch.version.cuda)
     t0 = time.perf_counter()
-    _build.build_all(("flash_attn", "radix_scatter"))
+    names = [KERNELS[k] for k in only] + (["radix_hist"] if "B" in only
+                                          else [])
+    _build.build_all(tuple(names))
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     if args.ptxas:
-        for name in ("flash_attn", "radix_scatter"):
+        for name in names:
             ptxas(name)
-    check_b()
-    check_g()
+    checks = {"G": lambda: check_g(), "B": lambda: (check_b(), check_e_wide()),
+              "H": lambda: check_h(args.probe), "A": lambda: check_a(args.probe)}
+    times = {"G": lambda: time_g(), "B": lambda: time_b(),
+             "H": lambda: time_h(args.probe), "A": lambda: time_a(args.probe)}
+    for k in only:
+        checks[k]()
     if not args.quick:
-        time_b()
-        time_g()
+        for k in only:
+            times[k]()
     print(smi)
     return 0
 
