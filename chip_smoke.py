@@ -7,9 +7,10 @@ sm_90a, one process per source, all at once) and holds each integer kernel
 bit for bit against its plain PyTorch version at the main paths' shapes and
 at ragged and wide ones: A (n1+n2), B (n3), C (segmented aggregation),
 D (hash bucket) and E (radix histogram), with A, B and E also at digits of
-17 and 18 bits (past the planner's 16) and A at 1-3 bits on ragged and
-unaligned keys, and ``phj_join`` over the pass schedules (17,) and (9, 9)
-at 2^20 against the join oracle.  Then it drives the port's
+17 and 18 bits (past the planner's 16), A at 1-3 bits on ragged and
+unaligned keys, E on clustered pids (sorted runs with out-of-range pids
+inside them, ragged, unaligned, up to 2^17 bins), and ``phj_join`` over
+the pass schedules (17,) and (9, 9) at 2^20 against the join oracle.  Then it drives the port's
 main paths, each with the launch counts set to 0 just before it and read
 just after, and verifies each against a NumPy oracle:
 
@@ -34,7 +35,9 @@ just after, and verifies each against a NumPy oracle:
   tests/test_archs.py's 0.06 relative limit.
 
 Kernel F (partitioned probe) is held against its plain version first,
-like A-E, and again at 2^17 partitions after the probe join; G and H
+like A-E, on sorted and on permuted rows (K from 1 to 2^20) and on
+``build_partitioned_table``'s rows of negative build keys, and again at
+2^17 partitions after the probe join; G and H
 against theirs within tests/test_kernels.py's tolerances over their
 grids in float32 and bfloat16 (H's bfloat16 cases through its
 tensor-core variant and through its CUDA-core variant, which serves
@@ -49,7 +52,12 @@ that served it; B (the shared-memory tile reorder) at both passes of the
 join's (7, 6) schedule against a stable sort and two gathers; A (wide
 loads, per-warp sub-histograms) there too against ``torch.bincount``;
 H (wgmma + TMA) at the Zamba2 prefill shape, with its CUDA-core
-variant's time beside it.
+variant's time beside it; E (wide loads, runs merged before the atomic)
+on the uniform pids of the probe join's packing (the record's row) and on
+the clustered pids of the final headers (beside it, under ``per_input``);
+F (a TMA ring, a producer warp, six consumer groups) at the probe join's
+layout.  E and F are also timed in a CUDA graph (``graph_ms``), the
+device's time without the host's per-call work.
 
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, and the
@@ -60,7 +68,6 @@ from __future__ import annotations
 
 import functools
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -84,6 +91,8 @@ from repro_torch.kernels.agg import agg  # noqa: E402
 from repro_torch.kernels.hash import hash as hsh  # noqa: E402
 from repro_torch.kernels.partition_hist import (  # noqa: E402
     fused, partition_hist, reorder)
+from repro_torch.kernels.partition_hist.ref import (  # noqa: E402
+    clustered_pids)
 from repro_torch.kernels.probe import ops as pops  # noqa: E402
 from repro_torch.kernels.probe import probe as pprobe  # noqa: E402
 from repro_torch.kernels.probe.ref import (  # noqa: E402
@@ -96,6 +105,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
 from repro_torch.kernels.ssd import ssd as kssd  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.obs.timing import cuda_ms, graph_ms  # noqa: E402
 from repro_torch.serve.engine import (ServeEngine,  # noqa: E402
                                       grow_cache, make_decode_step,
                                       make_prefill_step)
@@ -165,12 +175,20 @@ GRID_H = ((2, 3, 64, 4, 32, 16), (1, 2, 128, 8, 64, 64),
 TOL_G = {torch.float32: 3e-5, torch.bfloat16: 2e-2}   # test_kernels.py:109
 TOL_H = {torch.float32: 2e-4, torch.bfloat16: 3e-2}   # test_kernels.py:128
 PROBE_BITS = 13             # the planner's (7, 6) schedule at 2^24
-# (P, K, M) of kernel F's check: P in {1, 16, 2^13} x K in {8, 2304}, a
-# row past the 48 KB default of shared memory, and one longer than shared
-# memory holds at all (searched in device memory).
-GRID_PROBE = ((1, 8, 8), (16, 8, 300), (8192, 8, 128), (1, 2304, 5000),
+# (P, K, M) of kernel F's check, each on sorted and on permuted rows:
+# P in {1, 16, 2^13} x K in {1, 8, 36, 37, 2304}, a row past the 48 KB
+# default of shared memory, and one longer than shared memory holds at all
+# (searched in device memory).  K = 37 and 1 take the one-block-per-row
+# kernel (rows off 16 bytes), the others with K <= 2304 the TMA ring.
+GRID_PROBE = ((1, 8, 8), (16, 8, 300), (8192, 8, 128), (16, 1, 300),
+              (64, 36, 129), (64, 37, 129), (1, 2304, 5000),
               (16, 2304, 2304), (8192, 2304, 2304), (16, 32768, 4096),
               (1, 1 << 20, 1 << 16))
+# Kernel E's clustered check: sorted runs with out-of-range pids inside,
+# ragged n, P up to 2^17, aligned and 4 bytes past (phase 6 checks both
+# of its inputs at 2^24 too).
+E_CLUSTER_NS = (1, 3, 4099, N_WIDE + 3)
+E_CLUSTER_PARTS = (1, 2, 1 << 13, 1 << 14, 1 << 17)
 
 
 def log(*a):
@@ -190,26 +208,6 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Milliseconds per call of ``fn()``: CUDA events around ``reps``
-    calls enqueued back to back, so the host's per-call work overlaps the
-    device's instead of adding to it; the median of three such runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
 
 
 def keys_for(n: int, dev, seed: int) -> torch.Tensor:
@@ -562,16 +560,56 @@ def check_probe_kernel(dev) -> dict[str, int]:
     limit = pprobe.max_shared_keys()
     err = 0
     for p, k, m in GRID_PROBE:
-        tk, tr, pk = random_layout(p, k, m, seed=p + k, device=dev)
-        got = pprobe.probe(tk, tr, pk)
-        e = max_abs_diff(got, pprobe.probe_plain(tk, tr, pk))
-        torch.cuda.synchronize()
-        log(f"  P={p} K={k} M={m} ({'shared' if k <= limit else 'device'}"
-            f" memory, {int((got >= 0).sum())} hits): F err={e}")
-        assert e == 0, ("partitioned_probe", p, k, m, e)
-        err = max(err, e)
+        for order in ("sorted", "permuted"):
+            tk, tr, pk = random_layout(p, k, m, seed=p + k, device=dev,
+                                       sorted_rows=order == "sorted")
+            got = pprobe.probe(tk, tr, pk)
+            e = max_abs_diff(got, pprobe.probe_plain(tk, tr, pk))
+            torch.cuda.synchronize()
+            log(f"  P={p} K={k} M={m} {order} rows "
+                f"({'shared' if k <= limit else 'device'} memory, "
+                f"{int((got >= 0).sum())} hits): F err={e}")
+            assert e == 0, ("partitioned_probe", p, k, m, order, e)
+            err = max(err, e)
     assert GRID_PROBE[-1][1] > limit, ("no row past shared memory", limit)
+    # build_partitioned_table's own rows, with negative build keys:
+    # [non-negative ascending][negative ascending][INT_MAX pads].
+    n = 1 << 16
+    rng = np.random.default_rng(7)
+    build = Relation(torch.arange(n, dtype=torch.int32, device=dev),
+                     torch.from_numpy(rng.integers(-n, n, n)
+                                      .astype(np.int32)).to(dev))
+    probe = Relation(torch.arange(n, dtype=torch.int32, device=dev),
+                     torch.from_numpy(rng.integers(-n // 2, 3 * n // 2, n)
+                                      .astype(np.int32)).to(dev))
+    tk, tr, qk, _ = pops.build_partitioned_table(build, probe, total_bits=7)
+    e = max_abs_diff(pprobe.probe(tk, tr, qk), pprobe.probe_plain(tk, tr, qk))
+    torch.cuda.synchronize()
+    log(f"  build_partitioned_table, negative build keys, P=128 "
+        f"K={tk.shape[1]} M={qk.shape[1]}: F err={e}")
+    assert e == 0, ("partitioned_probe negative layout", e)
     return {"partitioned_probe": err}
+
+
+def check_clustered_hist(dev) -> dict[str, int]:
+    """Phases 2-3, continued: kernel E on clustered pids (``_headers``'s
+    input) against ``radix_hist_plain``, bit for bit: runs that cross
+    vector, warp and block edges with out-of-range pids inside them, over
+    ragged n x P, aligned and 4 bytes past a 16-byte boundary."""
+    err = 0
+    for n in E_CLUSTER_NS:
+        for p in E_CLUSTER_PARTS:
+            base = clustered_pids(n + 1, p, seed=n + p, device=dev)
+            for name, pid in (("aligned", base[:n]), ("offset", base[1:])):
+                e = max_abs_diff(partition_hist.radix_hist(pid, num_parts=p),
+                                 partition_hist.radix_hist_plain(
+                                     pid, num_parts=p))
+                torch.cuda.synchronize()
+                assert e == 0, ("radix_hist clustered", n, p, name, e)
+                err = max(err, e)
+        log(f"  n={n} clustered, P in {E_CLUSTER_PARTS}, aligned and "
+            f"offset: E err={err}")
+    return {"radix_hist": err}
 
 
 def check_wide_probe(dev, n: int = 1 << 16) -> dict[str, int]:
@@ -737,6 +775,7 @@ def time_probe_kernel(dev) -> dict:
     row = {
         "shape": f"P={p}, K={k}, M={m}, {hits} hits",
         "ms": cuda_ms(lambda: pprobe.probe(tk, tr, qk)),
+        "graph_ms": graph_ms(lambda: pprobe.probe(tk, tr, qk)),
         "plain_ms": cuda_ms(lambda: pprobe.probe_plain(tk, tr, qk)),
         "library_ms": cuda_ms(lambda: probe_ref(tk, tr, qk)),
         "library": "composite: batched torch.searchsorted (uint32 order in "
@@ -769,8 +808,8 @@ def library_seg_agg(gid: torch.Tensor, val: torch.Tensor, slots: int):
 def time_group_kernels(dev) -> dict[str, dict]:
     """Phase 6, continued: C at n = S = 2^24 with sorted gids from 2^18
     groups (the GPU_ONLY unpartitioned group-by's reduce), D at 2^24 with
-    B = 2^13 and E at 2^24 with P = 2^13 (the headers of a (7, 6)
-    schedule)."""
+    B = 2^13 and E at 2^24 with P = 2^13 on uniform and on clustered pids
+    (the headers of a (7, 6) schedule)."""
     n = N_MAIN
     keys, value_sets = group_data(n, seed=n)
     skeys = torch.sort(torch.from_numpy(keys).to(dev)).values
@@ -788,7 +827,8 @@ def time_group_kernels(dev) -> dict[str, dict]:
         "library": "bincount + index_add_ int64 + scatter_reduce_ amin + "
                    "amax (summed)",
         "bound_ms": (8 * n + 4 * (3 + rows) * n) / HBM_BYTES_PER_S * 1e3}}
-    rel_keys = uniform_relation(n, seed=1, device=dev).key
+    rel = uniform_relation(n, seed=1, device=dev)
+    rel_keys = rel.key
     b = 1 << 13
     out["hash_bucket"] = {
         "shape": f"n={n}, B={b}",
@@ -797,15 +837,30 @@ def time_group_kernels(dev) -> dict[str, dict]:
                                                           num_buckets=b)),
         "library_ms": None, "library": "none: no PyTorch call hashes",
         "bound_ms": 8 * n / HBM_BYTES_PER_S * 1e3}
-    pid = hsh.hash_bucket(rel_keys, num_buckets=b)
-    out["radix_hist"] = {
-        "shape": f"n={n}, P={b}",
-        "ms": cuda_ms(lambda: partition_hist.radix_hist(pid, num_parts=b)),
-        "plain_ms": cuda_ms(lambda: partition_hist.radix_hist_plain(
-            pid, num_parts=b)),
-        "library_ms": cuda_ms(lambda: torch.bincount(pid, minlength=b)),
-        "library": "torch.bincount",
-        "bound_ms": (4 * n + 4 * b) / HBM_BYTES_PER_S * 1e3}
+    # E on its two inputs: the uniform pids hash_bucket gives the packing
+    # of the partitioned probe join, and the clustered pids of the final
+    # headers (_headers) of a relation partitioned by the (7, 6) schedule,
+    # which phj_join and the partitioned group-by give it.
+    parts = radix_partition_scheduled(rel, schedule=(7, 6)).rel
+    rows = []
+    for name, pid in (("uniform (hash_bucket)",
+                       hsh.hash_bucket(rel_keys, num_buckets=b)),
+                      ("clustered (_headers after (7, 6))",
+                       radix_of(parts.key, shift=0, bits=13))):
+        e = max_abs_diff(partition_hist.radix_hist(pid, num_parts=b),
+                         partition_hist.radix_hist_plain(pid, num_parts=b))
+        assert e == 0, ("radix_hist", name, e)
+        run = (lambda: partition_hist.radix_hist(pid, num_parts=b))
+        rows.append({
+            "shape": f"n={n}, P={b}, {name} pids",
+            "ms": cuda_ms(run), "graph_ms": graph_ms(run),
+            "plain_ms": cuda_ms(lambda: partition_hist.radix_hist_plain(
+                pid, num_parts=b)),
+            "library_ms": cuda_ms(lambda: torch.bincount(pid, minlength=b)),
+            "library": "torch.bincount",
+            "bound_ms": (4 * n + 4 * b) / HBM_BYTES_PER_S * 1e3})
+    # The row itself times the uniform input; both stand under per_input.
+    out["radix_hist"] = dict(rows[0], per_input=rows)
     for name, row in out.items():
         log(f"  {name}: {row}")
     return out
@@ -1173,8 +1228,9 @@ def main() -> int:
     err = check_kernels(dev)
     err.update(check_group_kernels(dev))
     err.update(check_probe_kernel(dev))
-    for name, e in check_wide_kernels(dev).items():
-        err[name] = max(err[name], e)
+    for extra in (check_wide_kernels(dev), check_clustered_hist(dev)):
+        for name, e in extra.items():
+            err[name] = max(err[name], e)
     run_wide_joins(dev)
 
     log_phase("[4] main path: phj_join 2^24 x 2^24")

@@ -24,11 +24,14 @@ def probe_ref(table_keys: torch.Tensor, table_rids: torch.Tensor,
         .to(torch.int32)
 
 
-def random_layout(p: int, k: int, m: int, *, seed: int, device="cpu"):
+def random_layout(p: int, k: int, m: int, *, seed: int, device="cpu",
+                  sorted_rows: bool = True):
     """A (P, K) table and (P, M) probe keys made from a NumPy seed: rows
     sorted as uint32 with duplicate build keys, negative real keys and
     INT_MAX pads at random fill; probe keys with misses, negative keys and
-    -1 pads.  Returns ``(table_keys, table_rids, probe_keys)``."""
+    -1 pads.  With ``sorted_rows=False`` each row's (key, rid) pairs are
+    then permuted (the kernel must agree with the reference's search on
+    any row).  Returns ``(table_keys, table_rids, probe_keys)``."""
     rng = np.random.default_rng(seed)
     span = max(4, k // 2)
     keys = rng.integers(-span // 4, span, (p, k)).astype(np.int32)
@@ -41,4 +44,9 @@ def random_layout(p: int, k: int, m: int, *, seed: int, device="cpu"):
                           .astype(np.int32)).to(device)
     pk = rng.integers(-span // 4 - 2, span + 2, (p, m)).astype(np.int32)
     pk[rng.random((p, m)) < 0.125] = -1
+    if not sorted_rows:
+        perm = torch.from_numpy(np.argsort(rng.random((p, k)), axis=1)) \
+            .to(device)
+        tk = torch.gather(tk, 1, perm).contiguous()
+        tr = torch.gather(tr, 1, perm).contiguous()
     return tk, tr, torch.from_numpy(pk).to(device)

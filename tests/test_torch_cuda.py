@@ -15,6 +15,7 @@ from repro_torch.kernels.partition_hist import (fused, partition_hist,
                                                 reorder)
 from repro_torch.kernels.probe import ops as pops
 from repro_torch.kernels.probe import probe as pprobe
+from repro_torch.kernels.partition_hist.ref import clustered_pids
 from repro_torch.kernels.probe.ref import random_layout
 from repro_torch.kernels.flash_attn import flash_attn as fa
 from repro_torch.kernels.ssd import ssd as kssd
@@ -183,6 +184,69 @@ def test_partitioned_probe_matches_plain_version(dev, p, k, m):
     assert torch.equal(got, pprobe.probe_plain(tk, tr, pk))
     if k == 1 << 20:          # longer than shared memory holds
         assert k > pprobe.max_shared_keys()
+
+
+@pytest.mark.parametrize("n", [1, 3, (1 << 20) + 3])
+@pytest.mark.parametrize("p", [1, 2, 1 << 13, 1 << 14, 1 << 17])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_radix_hist_clustered_matches_plain_version(dev, n, p, aligned):
+    """Kernel E on clustered pids (sorted runs crossing vector, warp and
+    block edges, with -1, P and P + 1 inside them), ragged n, on a vector
+    4 bytes past a 16-byte boundary too (its scalar head)."""
+    base = clustered_pids(n + 1, p, seed=n + p, device=dev)
+    pid = base[:n] if aligned else base[1:]
+    assert torch.equal(partition_hist.radix_hist(pid, num_parts=p),
+                       partition_hist.radix_hist_plain(pid, num_parts=p))
+
+
+@pytest.mark.parametrize("p,k,m", [(16, 1, 300), (64, 36, 129),
+                                   (64, 37, 129), (16, 2304, 2304),
+                                   (8192, 2304, 2432), (16, 32768, 4096),
+                                   (1, 1 << 20, 1 << 16)])
+def test_partitioned_probe_unsorted_rows_match_plain_version(dev, p, k, m):
+    """Kernel F agrees with the reference's search on rows that are not
+    sorted (each row's pairs permuted), through the TMA ring (K = 36,
+    2304), the one-block-per-row kernel (K = 1, 37, 32768) and device
+    memory (2^20)."""
+    tk, tr, pk = random_layout(p, k, m, seed=p + k, device=dev,
+                               sorted_rows=False)
+    assert torch.equal(pprobe.probe(tk, tr, pk),
+                       pprobe.probe_plain(tk, tr, pk))
+
+
+def test_partitioned_probe_unaligned_rows_match_plain_version(dev):
+    """Tensors that start 4 bytes past a 16-byte boundary."""
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+    tk, tr, pk = (offset(t) for t in random_layout(64, 36, 100, seed=5,
+                                                   device=dev))
+    assert torch.equal(pprobe.probe(tk, tr, pk),
+                       pprobe.probe_plain(tk, tr, pk))
+
+
+@pytest.mark.parametrize("bits", [4, 7])
+def test_partitioned_probe_negative_layout_matches_plain_version(dev, bits):
+    """build_partitioned_table's rows when the build side holds negative
+    keys (tests/test_torch_probe.py's "negative" kind): [non-negative
+    ascending][negative ascending][INT_MAX pads], not sorted as uint32
+    across the pads; card against plain version and against the CPU."""
+    nb, np_ = 1 << 12, 1 << 13
+    rng = np.random.default_rng(nb + bits)
+    b = tc.Relation(torch.arange(nb, dtype=torch.int32),
+                    torch.from_numpy(rng.integers(-nb, nb, nb)
+                                     .astype(np.int32)))
+    p = tc.Relation(torch.arange(np_, dtype=torch.int32),
+                    torch.from_numpy(rng.integers(-nb // 2, 3 * nb // 2, np_)
+                                     .astype(np.int32)))
+    layout = pops.build_partitioned_table(b.to(dev), p.to(dev),
+                                          total_bits=bits)
+    got = pops.probe(*layout[:3])
+    assert torch.equal(got, pprobe.probe_plain(*layout[:3]))
+    want = pops.probe(*pops.build_partitioned_table(b, p,
+                                                    total_bits=bits)[:3])
+    assert torch.equal(got.cpu(), want)
 
 
 def test_probe_wrapper_rejects_bad_inputs(dev):

@@ -18,7 +18,10 @@ from repro_torch.core.partition import partition_n2
 from repro_torch.kernels.hash.ops import hash_bucket
 from repro_torch.kernels.hash.ref import hash_bucket_ref
 from repro_torch.kernels.partition_hist.ops import radix_hist
-from repro_torch.kernels.partition_hist.ref import radix_hist_ref
+from repro_torch.kernels.partition_hist.partition_hist import \
+    radix_hist_plain
+from repro_torch.kernels.partition_hist.ref import (clustered_pids,
+                                                    radix_hist_ref)
 
 SIZES = [1, 2, 1 << 7, 1 << 13]
 
@@ -92,6 +95,19 @@ def test_radix_hist_drops_out_of_range_pids(num_parts):
     _eq(j_hist_ref(jnp.asarray(pid), num_parts=num_parts), got)
     assert torch.equal(got, radix_hist(torch.from_numpy(pid),
                                        num_parts=num_parts))
+
+
+@pytest.mark.parametrize("num_parts", SIZES)
+def test_radix_hist_clustered_matches_pallas(num_parts):
+    """Clustered pids (sorted runs, as a partitioned relation's final
+    headers give kernel E) with -1, P and P + 1 inside the runs: the plain
+    version against the Pallas kernel in interpret mode."""
+    pid = clustered_pids(4096, num_parts, seed=num_parts)
+    assert bool(((pid < 0) | (pid >= num_parts)).any())
+    got = radix_hist_plain(pid, num_parts=num_parts)
+    _eq(radix_hist_pallas(jnp.asarray(pid.numpy()), num_parts=num_parts,
+                          interpret=True), got)
+    _eq(j_hist_ref(jnp.asarray(pid.numpy()), num_parts=num_parts), got)
 
 
 def test_radix_hist_fault_case():

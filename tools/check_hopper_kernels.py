@@ -1,9 +1,9 @@
 """Build, check and time the redesigned kernels G (flash attention), B
-(radix scatter), H (SSD intra-chunk) and A (fused radix digit +
-histogram) on one CUDA card.
+(radix scatter), H (SSD intra-chunk), A (fused radix digit + histogram),
+E (radix histogram) and F (partitioned probe) on one CUDA card.
 
-    python3 tools/check_hopper_kernels.py [--ptxas] [--quick] [--only G,B,H,A]
-                                          [--probe]
+    python3 tools/check_hopper_kernels.py [--ptxas] [--quick] [--probe]
+                                          [--only G,B,H,A,E,F]
 
 With ``--ptxas`` it first compiles each chosen kernel's source once more
 with ``nvcc -Xptxas -v`` and prints each kernel's registers, shared
@@ -18,22 +18,36 @@ them at the main paths' shapes beside their library calls: G at
 against a stable ``torch.sort`` + 2 gathers, H at Zamba2's prefill shape
 x (4, 8, 256, 64, 64), N 64, bf16 against two ``torch.matmul`` around
 the decay mask, A at 2^24 keys for 7 and 6 bits against ``torch.bincount``
-of the finished pids.  ``--probe`` also checks and times the builds the
+of the finished pids, E at 2^24 pids over 2^13 bins, uniform and clustered
+(sorted, as a partitioned relation's final headers see them), against
+``torch.bincount``, and F at path F's layout (2^24 unique x 2^24 uniform
+at 13 bits) against ``probe_ref`` (batched ``searchsorted`` + 2
+gathers); E and F are held bit for bit against their plain versions first
+(E on clustered pids with out-of-range pids inside the runs, ragged and
+unaligned; F on sorted, permuted, unaligned and packed layouts, rows
+longer than a pipelined stage).  ``--probe`` also checks and times the builds the
 designs were chosen against (``-D`` flags of their sources, built beside
 the ones every path uses): H with W rounded to bf16 once, on the CUDA
 cores, with three consumer warpgroups, with one exponential per entry
 of W, and, for timing only (their Y is wrong), without exponentials, on
 half the SMs, and with clock64() stamps of each part of a head; A with
 a match aggregation for narrow digits and with other block sizes and
-loads in flight; beside PyTorch's own copies of the same bytes
-(``x.float()`` for H, ``keys.clone()`` for A).  ``--quick`` stops after
-the checks.  Prints the card's name and power limit first.  Needs a CUDA
-card.
+loads in flight; E with other block sizes, blocks per SM, loads in flight
+and sub-histogram copies; F without the top table, without staged rids,
+with 1 or 2 keys a thread, with no stage ahead of its six consumer groups
+and with 7 groups of 4 warps (E's and F's builds are loaded by
+``_build.load`` and launched here, so the wrappers every path calls keep
+their signatures); beside PyTorch's own passes over the same bytes
+(``x.float()`` for H, ``keys.clone()`` for A, ``pid.amax()`` and
+``pid.clone()`` for E, ``tk.clone()`` + ``qk.clone()`` for F).
+``--quick`` stops after the checks.  Prints the card's name and power
+limit first.  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
-import statistics
+import ctypes
+import functools
 import subprocess
 import sys
 import time
@@ -45,12 +59,20 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.core import (Relation, unique_relation,  # noqa: E402
+                              uniform_relation)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
 from repro_torch.kernels.partition_hist import fused  # noqa: E402
 from repro_torch.kernels.partition_hist import partition_hist  # noqa: E402
 from repro_torch.kernels.partition_hist import reorder  # noqa: E402
+from repro_torch.kernels.partition_hist.ref import clustered_pids  # noqa: E402
+from repro_torch.kernels.probe import ops as pops  # noqa: E402
+from repro_torch.kernels.probe import probe as pprobe  # noqa: E402
+from repro_torch.kernels.probe.ref import probe_ref, random_layout  # noqa: E402
 from repro_torch.kernels.ssd import ssd as kssd  # noqa: E402
+from repro_torch.obs import timing  # noqa: E402
+from repro_torch.obs.timing import graph_ms  # noqa: E402
 
 G_CHECK = ((1, 128, 128, 2, 2, 64, True), (1, 128, 128, 2, 2, 128, True),
            (2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
@@ -78,26 +100,31 @@ H_PROBES = (("-DSSD_CONSUMERS=3",), ("-DSSD_FACTOR_EXP=0",),
 A_PROBES = (("-DA_THREADS=256",), ("-DA_THREADS=1024",), ("-DA_U=2",),
             ("-DA_U=8",))
 A_MATCH = ("-DMATCH_MAX_BITS=3",)   # __match_any_sync up to 3 bits
+# E: (n, P) checked on uniform and clustered pids, aligned and 4 bytes
+# past alignment; the builds its design was chosen against.
+E_SIZES = (0, 1, 3, 4099, (1 << 20) + 3)
+E_PARTS = (1, 2, 1 << 13, 1 << 14, 1 << 15, 1 << 17)
+E_PROBES = (("-DE_THREADS=512",),
+            ("-DE_THREADS=512", "-DE_BLOCKS_PER_SM=1"), ("-DE_THREADS=256",),
+            ("-DE_U=2",), ("-DE_U=8",), ("-DE_COPIES=1",), ("-DE_COPIES=4",))
+# F: (P, K, M) checked on sorted and unsorted rows; the builds its design
+# was chosen against.
+F_CHECK = ((1, 1, 8), (3, 1, 37), (16, 4, 300), (16, 37, 300),
+           (64, 36, 100), (64, 37, 129), (1, 2304, 5000), (16, 2304, 2304),
+           (8192, 2304, 2432), (16, 32768, 4096))
+F_PROBES = (("-DF_TOP=0",), ("-DF_STAGE_RIDS=0",), ("-DF_KPT=1",),
+            ("-DF_KPT=2",), ("-DF_WS_STAGES=6",),
+            ("-DF_WS_GROUPS=7", "-DF_WS_WARPS=4"))
 HBM = 3.35e12
+# chip_smoke.py's method, at 20 calls a run.
+cuda_ms = functools.partial(timing.cuda_ms, reps=20, warmup=3)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Milliseconds per call: CUDA events around ``reps`` calls enqueued
-    back to back (chip_smoke.py's method), the median of three runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return statistics.median(times)
+def prebuild(pairs) -> None:
+    """Compile every (source, defines) build at once, one nvcc each."""
+    started = [(name, _build._start(name, d)) for name, d in pairs]
+    for name, st in started:
+        _build._finish(name, st)
 
 
 def ptxas(name: str) -> None:
@@ -385,8 +412,201 @@ def time_a(probe: bool) -> None:
               f"{cuda_ms(lambda: keys.clone()):.5f} ms", flush=True)
 
 
+def e_build(defines):
+    """Kernel E's function ``(pid, num_parts) -> hist``: the wrapper every
+    path calls, or the launch of a probing build with ``defines`` (not
+    counted among the wrapper's launches)."""
+    if not defines:
+        return lambda pid, p: partition_hist.radix_hist(pid, num_parts=p)
+    fn = _build.load("radix_hist", defines).radix_hist
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(pid, p):
+        hist = torch.empty(p, dtype=torch.int32, device=pid.device)
+        _build.check(fn(pid.data_ptr(), hist.data_ptr(), pid.shape[0], p,
+                        torch.cuda.current_stream().cuda_stream),
+                     "radix_hist")
+        return hist
+    return run
+
+
+def f_build(defines):
+    """Kernel F's function ``(table_keys, table_rids, probe_keys) ->
+    rids``, as ``e_build`` gives E's."""
+    if not defines:
+        return pprobe.probe
+    fn = _build.load("partitioned_probe", defines).partitioned_probe
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(tk, tr, pk):
+        out = torch.empty(pk.shape, dtype=torch.int32, device=pk.device)
+        _build.check(fn(tk.data_ptr(), tr.data_ptr(), pk.data_ptr(),
+                        out.data_ptr(), tk.shape[0], tk.shape[1],
+                        pk.shape[1], torch.cuda.current_stream().cuda_stream),
+                     "partitioned_probe")
+        return out
+    return run
+
+
+def e_pids(n: int, p: int, clustered: bool, seed: int) -> torch.Tensor:
+    """n + 1 pids: uniform in [-2, P + 2), or ``clustered_pids`` (sorted
+    runs with -1, P and P + 1 inside them)."""
+    if clustered:
+        return clustered_pids(n + 1, p, seed=seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-2, p + 2, n + 1)
+                            .astype(np.int32)).cuda()
+
+
+def check_e(probe: bool) -> None:
+    builds = [()] + (list(E_PROBES) if probe else [])
+    for defines in builds:
+        hist = e_build(defines)
+        for n in E_SIZES:
+            for p in E_PARTS:
+                for clustered in (False, True):
+                    base = e_pids(n, p, clustered, n + p)
+                    for name, pid in (("aligned", base[:n]),
+                                      ("offset", base[1:])):
+                        got = hist(pid, p)
+                        want = partition_hist.radix_hist_plain(pid,
+                                                               num_parts=p)
+                        ok = torch.equal(got, want)
+                        assert ok, (n, p, clustered, name, defines)
+        print(f"E {' '.join(defines) or 'default'}: every (n, P, order, "
+              "alignment) case bit-exact", flush=True)
+
+
+def time_e(probe: bool) -> None:
+    n, p = 1 << 24, 1 << 13
+    bound = (4 * n + 4 * p) / HBM * 1e3
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for clustered in (False, True):
+        pid = torch.randint(0, p, (n,), generator=gen, dtype=torch.int32,
+                            device="cuda")
+        if clustered:
+            pid = torch.sort(pid).values
+        what = "clustered" if clustered else "uniform"
+        builds = [()] + (list(E_PROBES) if probe else [])
+        for defines in builds:
+            run = functools.partial(e_build(defines), pid, p)
+            ms, gms = cuda_ms(run), graph_ms(run)
+            print(f"E time n=2^24 P=2^13 {what} {' '.join(defines)}: "
+                  f"{ms:.5f} ms back to back, {gms:.5f} ms in a CUDA graph; "
+                  f"bound {bound:.6f} ms (bytes), {bound / gms:.3f} of it",
+                  flush=True)
+        lib = cuda_ms(lambda: torch.bincount(pid, minlength=p))
+        plain = cuda_ms(lambda: partition_hist.radix_hist_plain(
+            pid, num_parts=p), reps=5)
+        print(f"E time n=2^24 P=2^13 {what}: plain {plain:.5f} ms, "
+              f"torch.bincount {lib:.5f} ms", flush=True)
+    if probe:
+        # The global-memory path (2^17 bins) on clustered pids, where run
+        # merging spares runs of equal atomics on one address.
+        wide = torch.sort(torch.randint(0, 1 << 17, (n,), generator=gen,
+                                        dtype=torch.int32,
+                                        device="cuda")).values
+        ms = graph_ms(lambda: partition_hist.radix_hist(wide,
+                                                        num_parts=1 << 17))
+        print(f"E time n=2^24 P=2^17 clustered: {ms:.5f} ms in a CUDA graph",
+              flush=True)
+        small = pid[:1 << 12]
+        print(f"E yardsticks: pid.amax() (reads the same bytes) "
+              f"{graph_ms(lambda: pid.amax()):.5f} ms, pid.clone() (reads "
+              f"and writes them) {graph_ms(lambda: pid.clone()):.5f} ms; E at "
+              f"n = 2^12, P = 2^13 (its fixed cost) "
+              f"{graph_ms(lambda: partition_hist.radix_hist(small, num_parts=p)):.5f}"
+              f" ms in a CUDA graph, "
+              f"{cuda_ms(lambda: partition_hist.radix_hist(small, num_parts=p)):.5f}"
+              " ms back to back (the host's time per call)", flush=True)
+
+
+def f_layouts():
+    """(name, table_keys, table_rids, probe_keys) on the card: random
+    layouts with sorted rows and with each row permuted, one 4 bytes past
+    16-byte alignment, and build_partitioned_table's layouts of unique and
+    negative build keys (rows [non-negative][negative][INT_MAX pads])."""
+    for p, k, m in F_CHECK:
+        for order in ("sorted", "unsorted"):
+            yield (f"P={p} K={k} M={m} {order}", *random_layout(
+                p, k, m, seed=p + k, device="cuda",
+                sorted_rows=order == "sorted"))
+    p, k, m = 64, 36, 100
+    tk, tr, pk = random_layout(p, k, m, seed=5, device="cuda")
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+    yield f"P={p} K={k} M={m} offset", offset(tk), offset(tr), offset(pk)
+    rng = np.random.default_rng(9)
+    for kind, n in (("unique", 1 << 16), ("negative", 1 << 16)):
+        keys = (rng.permutation(n) if kind == "unique"
+                else rng.integers(-n, n, n))
+        build = Relation(torch.arange(n, dtype=torch.int32, device="cuda"),
+                         torch.from_numpy(keys.astype(np.int32)).cuda())
+        probe = uniform_relation(n, key_range=n, seed=4, device="cuda")
+        probe = Relation(probe.rid, probe.key - n // 2)
+        tk, tr, qk, _ = pops.build_partitioned_table(build, probe,
+                                                     total_bits=7)
+        yield f"build_partitioned_table {kind} 2^16", tk, tr, qk
+
+
+def check_f(probe: bool) -> None:
+    builds = [()] + (list(F_PROBES) if probe else [])
+    layouts = list(f_layouts())
+    for defines in builds:
+        probe_fn = f_build(defines)
+        for name, tk, tr, pk in layouts:
+            got = probe_fn(tk, tr, pk)
+            ok = torch.equal(got, pprobe.probe_plain(tk, tr, pk))
+            if not ok or not defines:
+                print(f"F {name} {' '.join(defines)}: "
+                      f"{'bit-exact' if ok else 'FAIL'}", flush=True)
+            assert ok, (name, defines)
+        print(f"F {' '.join(defines) or 'default'}: every layout "
+              "bit-exact", flush=True)
+
+
+def f_path_layout():
+    """Path F's layout: unique(2^24) x uniform(2^24) at 13 bits."""
+    n = 1 << 24
+    build = unique_relation(n, seed=1, device="cuda")
+    probe = uniform_relation(n, seed=2, device="cuda")
+    tk, tr, qk, _ = pops.build_partitioned_table(build, probe, total_bits=13)
+    return tk, tr, qk
+
+
+def time_f(probe: bool) -> None:
+    tk, tr, qk = f_path_layout()
+    (p, k), m = tk.shape, qk.shape[1]
+    hits = int((pprobe.probe(tk, tr, qk) >= 0).sum())
+    bound = (p * k + 2 * p * m + hits) * 4 / HBM * 1e3
+    builds = [()] + (list(F_PROBES) if probe else [])
+    for defines in builds:
+        run = functools.partial(f_build(defines), tk, tr, qk)
+        ms, gms = cuda_ms(run), graph_ms(run)
+        print(f"F time P={p} K={k} M={m} {' '.join(defines)}: {ms:.5f} ms "
+              f"back to back, {gms:.5f} ms in a CUDA graph; bound "
+              f"{bound:.6f} ms (bytes), {bound / gms:.3f} of it", flush=True)
+    lib = cuda_ms(lambda: probe_ref(tk, tr, qk), reps=5)
+    print(f"F time: probe_ref (searchsorted + 2 gathers) {lib:.5f} ms",
+          flush=True)
+    if probe:
+        print(f"F yardstick: tk.clone() + qk.clone() (reads and writes "
+              f"{2 * (tk.numel() + qk.numel()) * 4 / 1e6:.0f} MB, about F's "
+              f"bytes) {graph_ms(lambda: (tk.clone(), qk.clone())):.5f} ms "
+              "in a CUDA graph",
+              flush=True)
+
+
 KERNELS = {"G": "flash_attn", "B": "radix_scatter", "H": "ssd_intra_chunk",
-           "A": "partition_hist_fused"}
+           "A": "partition_hist_fused", "E": "radix_hist",
+           "F": "partitioned_probe"}
 
 
 def main() -> int:
@@ -394,7 +614,7 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--probe", action="store_true")
-    ap.add_argument("--only", default="G,B,H,A")
+    ap.add_argument("--only", default="G,B,H,A,E,F")
     args = ap.parse_args()
     only = [k.strip() for k in args.only.split(",") if k.strip()]
     if not torch.cuda.is_available():
@@ -405,17 +625,25 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(smi, "| torch", torch.__version__, "cuda", torch.version.cuda)
     t0 = time.perf_counter()
-    names = [KERNELS[k] for k in only] + (["radix_hist"] if "B" in only
-                                          else [])
-    _build.build_all(tuple(names))
+    names = [KERNELS[k] for k in only]
+    if "B" in only and "E" not in only:
+        names.append("radix_hist")
+    probes = {"E": ("radix_hist", E_PROBES),
+              "F": ("partitioned_probe", F_PROBES)}
+    prebuild([(n, ()) for n in names] +
+             [(probes[k][0], d) for k in only if args.probe and k in probes
+              for d in probes[k][1]])
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     if args.ptxas:
         for name in names:
             ptxas(name)
     checks = {"G": lambda: check_g(), "B": lambda: (check_b(), check_e_wide()),
-              "H": lambda: check_h(args.probe), "A": lambda: check_a(args.probe)}
+              "H": lambda: check_h(args.probe), "A": lambda: check_a(args.probe),
+              "E": lambda: check_e(args.probe),
+              "F": lambda: check_f(args.probe)}
     times = {"G": lambda: time_g(), "B": lambda: time_b(),
-             "H": lambda: time_h(args.probe), "A": lambda: time_a(args.probe)}
+             "H": lambda: time_h(args.probe), "A": lambda: time_a(args.probe),
+             "E": lambda: time_e(args.probe), "F": lambda: time_f(args.probe)}
     for k in only:
         checks[k]()
     if not args.quick:

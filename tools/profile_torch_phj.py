@@ -1,6 +1,7 @@
 """Where the time of the port's ``phj_join`` goes, on one CUDA card.
 
     python3 tools/profile_torch_phj.py [--n 16777216] [--trace-dir reports/torch]
+    python3 tools/profile_torch_phj.py --paths [--n 16777216] [--reps 5]
 
 Runs ``phj_join`` on two uniform relations of ``n`` tuples (seeds 1 and
 2, the planner's schedule) and reports:
@@ -14,41 +15,64 @@ Runs ``phj_join`` on two uniform relations of ``n`` tuples (seeds 1 and
   the port runs on one stream).  The Chrome trace goes to
   ``<trace-dir>/phj_join_trace.json``.
 
-Prints the card's name and power limit first.  Needs a CUDA card.
+With ``--paths`` it times instead the paths that run kernels E (radix
+histogram) and F (partitioned probe), to compare two trees of the
+repository in one call on one card: run it from each tree in turns
+(parent, change, change, parent; a tree older than this mode needs this
+file and ``src/repro_torch/obs/timing.py`` copied in).  Each number
+comes after a warm-up call:
+
+* the partitioned probe join, unique(n, seed 1) x uniform(n, seed 2) at
+  13 bits: ``build_partitioned_table`` and ``probe``, one call each
+  (``call_ms``, the median of ``--reps``);
+* ``CoProcessor.groupby`` GPU_ONLY over the schedule (7, 6): n tuples
+  with keys uniform in [0, n / 64) and full-range values
+  (chip_smoke.py's group-by data), its phase times, the median of
+  ``--reps`` calls;
+* kernel E at n pids over 2^13 bins on its two inputs (the uniform pids
+  that ``hash_bucket`` gives the probe join's packing, and the clustered
+  pids of ``_headers`` after the (7, 6) schedule, which ``phj_join`` and
+  the partitioned group-by give it) and kernel F at the probe join's
+  layout: back to back (``cuda_ms``, 20 calls a run) and in a CUDA graph
+  (``graph_ms``);
+* ``phj_join``: one call (``call_ms``), then, last in the process, its
+  device-busy time under the profiler.
+
+Prints the card's name and power limit first and, with ``--paths``, a
+JSON object of every number last.  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "src"))
 
+import repro_torch.ops  # noqa: E402,F401  (attaches CoProcessor.groupby)
 from repro_torch.core import hash_table as ht  # noqa: E402
-from repro_torch.core import (phj_bucket_count, phj_join,  # noqa: E402
-                              resolve_schedule, uniform_relation)
+from repro_torch.core import (CoProcessor, Relation,  # noqa: E402
+                              phj_bucket_count, phj_join, radix_of,
+                              radix_partition_scheduled, resolve_schedule,
+                              uniform_relation, unique_relation)
 from repro_torch.core.partition import _headers, partition_pass  # noqa: E402
 from repro_torch.core.phj import partition_bucket_ids  # noqa: E402
+from repro_torch.kernels._build import build_all  # noqa: E402
+from repro_torch.kernels.hash import hash as hsh  # noqa: E402
+from repro_torch.kernels.partition_hist import partition_hist  # noqa: E402
+from repro_torch.kernels.probe import ops as pops  # noqa: E402
+from repro_torch.obs.timing import call_ms, cuda_ms, graph_ms  # noqa: E402
 
-
-def cuda_ms(fn, reps: int = 5) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+PROBE_BITS = 13
+GROUP_SCHEDULE = (7, 6)
 
 
 def breakdown(build, probe, sched, shj_bits, max_out) -> list[tuple]:
@@ -57,72 +81,137 @@ def breakdown(build, probe, sched, shj_bits, max_out) -> list[tuple]:
     for tag in ("R", "S"):
         cur, shift = rels[tag], 0
         for i, bits in enumerate(sched):
-            rows.append((f"partition {tag} pass{i} (bits {bits})", cuda_ms(
+            rows.append((f"partition {tag} pass{i} (bits {bits})", call_ms(
                 lambda: partition_pass(cur, shift=shift, bits=bits))))
             cur = partition_pass(cur, shift=shift, bits=bits)
             shift += bits
         total = sum(sched)
-        rows.append((f"partition {tag} final headers", cuda_ms(
+        rows.append((f"partition {tag} final headers", call_ms(
             lambda: _headers(cur, total))))
         rels[tag] = cur
     r, s = rels["R"], rels["S"]
     total = sum(sched)
     nb = 1 << (total + shj_bits)
-    rows.append(("join bucket ids R+S", cuda_ms(lambda: (
+    rows.append(("join bucket ids R+S", call_ms(lambda: (
         partition_bucket_ids(r.key, total_bits=total, shj_bits=shj_bits),
         partition_bucket_ids(s.key, total_bits=total, shj_bits=shj_bits)))))
     bkt = partition_bucket_ids(r.key, total_bits=total, shj_bits=shj_bits)
     pbkt = partition_bucket_ids(s.key, total_bits=total, shj_bits=shj_bits)
     rows.append(("build b2 (two stable sorts)",
-                 cuda_ms(lambda: ht.build_b2_order(bkt, r.key))))
+                 call_ms(lambda: ht.build_b2_order(bkt, r.key))))
     order = ht.build_b2_order(bkt, r.key)
-    rows.append(("build b3 + b4 (key lists, rid gather)", cuda_ms(
+    rows.append(("build b3 + b4 (key lists, rid gather)", call_ms(
         lambda: (ht.build_b3_keylists(bkt[order], r.key[order], nb),
                  ht.build_b4_ridlists(r.rid, order)))))
     table = ht.table_from_buckets(r, bkt, nb)
     rows.append(("probe p2 (bucket headers)",
-                 cuda_ms(lambda: ht.probe_p2(table, pbkt))))
+                 call_ms(lambda: ht.probe_p2(table, pbkt))))
     kstart, kcount = ht.probe_p2(table, pbkt)
-    rows.append(("probe p3 (binary search)", cuda_ms(
+    rows.append(("probe p3 (binary search)", call_ms(
         lambda: ht.probe_p3(table, s.key, kstart, kcount))))
     entry, nmatch = ht.probe_p3(table, s.key, kstart, kcount)
-    rows.append(("probe p4 (expand to pairs)", cuda_ms(
+    rows.append(("probe p4 (expand to pairs)", call_ms(
         lambda: ht.probe_p4(table, s.rid, entry, nmatch, max_out))))
     return rows
 
 
-def profile(build, probe, max_out, trace_dir: Path) -> None:
+def _dev_us(e) -> float:
+    return float(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)))
+
+
+def device_profile(fn):
+    """One call of ``fn`` under ``torch.profiler``: (the profile, its
+    kernel rows by device time, the device-busy ms, the wall ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                   acc_events=True) as prof:
         t0 = time.perf_counter()
-        phj_join(build, probe, max_out=max_out)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    trace_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace_dir / "phj_join_trace.json"))
-
-    def dev_us(e) -> float:
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
-
     # Kernel rows only: an aten op's row repeats its kernels' device time.
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA),
-                  key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+                  key=_dev_us, reverse=True)
+    return prof, rows, sum(_dev_us(e) for e in rows) / 1e3, wall_ms
+
+
+def profile(build, probe, max_out, trace_dir: Path) -> None:
+    prof, rows, busy_ms, wall_ms = device_profile(
+        lambda: phj_join(build, probe, max_out=max_out))
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace_dir / "phj_join_trace.json"))
     print(f"profiled phj_join: wall {wall_ms:.3f} ms (host clock, under "
           f"the profiler), device busy {busy_ms:.3f} ms, busy share "
           f"{busy_ms / wall_ms:.3f}")
     for e in rows[:15]:
-        print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        print(f"  {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def paths(n: int, reps: int) -> dict:
+    """The ``--paths`` numbers (see the module's docstring)."""
+    build_all(("partition_hist_fused", "radix_scatter", "hash_bucket",
+               "radix_hist", "partitioned_probe", "seg_agg"))
+    out = {}
+    build = uniform_relation(n, seed=1, device="cuda")
+    probe = uniform_relation(n, seed=2, device="cuda")
+
+    ubuild = unique_relation(n, seed=1, device="cuda")
+    layout = pops.build_partitioned_table(ubuild, probe,
+                                          total_bits=PROBE_BITS)
+    out["build_partitioned_table_ms"] = call_ms(
+        lambda: pops.build_partitioned_table(ubuild, probe,
+                                             total_bits=PROBE_BITS), reps)
+    out["probe_ms"] = call_ms(lambda: pops.probe(*layout[:3]), reps)
+
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, n // 64, n, dtype=np.int32)
+    rng.integers(0, 100, n, dtype=np.int32)   # chip_smoke.py's small set
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                            .astype(np.int32)).cuda()
+    rel = Relation(torch.arange(n, dtype=torch.int32, device="cuda"),
+                   torch.from_numpy(keys).cuda())
+    cp = CoProcessor(c_device="cpu", g_device="cuda")
+    phases = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        _, t = cp.groupby(rel, vals, schedule=GROUP_SCHEDULE,
+                          partition_ratio=0.0, agg_ratio=0.0)
+        phases.append(t.phase_s)
+    for name in phases[-1]:
+        out[f"groupby_{name}_ms"] = statistics.median(
+            p[name] * 1e3 for p in phases[1:])
+
+    p = 1 << PROBE_BITS
+    uniform = hsh.hash_bucket(build.key, num_buckets=p)
+    parts = radix_partition_scheduled(build, schedule=GROUP_SCHEDULE).rel
+    clustered = radix_of(parts.key, shift=0, bits=PROBE_BITS)
+    for name, pid in (("uniform", uniform), ("clustered", clustered)):
+        def run():
+            return partition_hist.radix_hist(pid, num_parts=p)
+        out[f"E_{name}_ms"] = cuda_ms(run, reps=20, warmup=3)
+        out[f"E_{name}_graph_ms"] = graph_ms(run)
+    out["F_ms"] = cuda_ms(lambda: pops.probe(*layout[:3]), reps=20, warmup=3)
+    out["F_graph_ms"] = graph_ms(lambda: pops.probe(*layout[:3]))
+    del ubuild, layout, rel, vals, parts
+
+    max_out = 3 * n
+    out["phj_join_ms"] = call_ms(
+        lambda: phj_join(build, probe, max_out=max_out), reps)
+    # Last: nothing else in the process runs after the profiler.
+    out["phj_join_device_busy_ms"] = device_profile(
+        lambda: phj_join(build, probe, max_out=max_out))[2]
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1 << 24)
     ap.add_argument("--trace-dir", default="reports/torch")
+    ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_phj: no CUDA device", file=sys.stderr)
@@ -132,13 +221,22 @@ def main() -> int:
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip())
     n = args.n
+    if args.paths:
+        print(f"tree {ROOT}", flush=True)
+        out = paths(n, args.reps)
+        for name, v in out.items():
+            print(f"  {name}: {v:.5f}", flush=True)
+        print(smi.stdout.strip())
+        print(json.dumps({"card": smi.stdout.strip(), "tree": str(ROOT),
+                          **out}))
+        return 0
     build = uniform_relation(n, seed=1, device="cuda")
     probe = uniform_relation(n, seed=2, device="cuda")
     sched = resolve_schedule(n)
     shj_bits = max(0, phj_bucket_count(n, sum(sched)).bit_length() - 1)
     max_out = 3 * n
     print(f"n={n} schedule={sched} shj_bits={shj_bits} max_out={max_out}")
-    wall = cuda_ms(lambda: phj_join(build, probe, max_out=max_out))
+    wall = call_ms(lambda: phj_join(build, probe, max_out=max_out))
     print(f"phj_join: {wall:.3f} ms (CUDA events, median of 5)")
     rows = breakdown(build, probe, sched, shj_bits, max_out)
     for name, ms in rows:
