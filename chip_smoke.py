@@ -34,6 +34,17 @@ just after, and verifies each against a NumPy oracle:
   logits held against ``forward_train`` (which runs G and H) within
   tests/test_archs.py's 0.06 relative limit.
 
+* the join-query engine (phase 11): ``QueryPlanner.calibrated`` at
+  n = 2^20 (and at its default n, for comparison) measures the host's and
+  the card's unit costs and the host hand-off; ``JoinQueryService`` (C
+  group on the host CPU, G group on the card, two workers, a 2 GiB cache)
+  serves the 16-query ``mixed`` workload at base 2^22 (relations of
+  2^21-2^23), the paper's default query three times (cold, then from the
+  cache), a group-by of 2^24 tuples with 2^18 keys, a semi and an anti
+  join at 2^22 and a 2^22 query under one injected kernel fault, every
+  result against a NumPy oracle; the content fingerprint's pull and hash
+  are timed at 2^22 and 2^24.
+
 Kernel F (partitioned probe) is held against its plain version first,
 like A-E, on sorted and on permuted rows (K from 1 to 2^20) and on
 ``build_partitioned_table``'s rows of negative build keys, and again at
@@ -86,6 +97,7 @@ from repro_torch.core import (PCIE_LINK, CoProcessor,  # noqa: E402
                               resolve_schedule, uniform_relation,
                               unique_relation)
 from repro_torch.core.coprocess import owned_slice  # noqa: E402
+from repro_torch import engine as eng  # noqa: E402
 from repro_torch.kernels._build import build_all  # noqa: E402
 from repro_torch.kernels.agg import agg  # noqa: E402
 from repro_torch.kernels.hash import hash as hsh  # noqa: E402
@@ -189,6 +201,15 @@ GRID_PROBE = ((1, 8, 8), (16, 8, 300), (8192, 8, 128), (16, 1, 300),
 # of its inputs at 2^24 too).
 E_CLUSTER_NS = (1, 3, 4099, N_WIDE + 3)
 E_CLUSTER_PARTS = (1, 2, 1 << 13, 1 << 14, 1 << 17)
+# Phase 11, the join-query engine: the mixed workload's base size (its
+# relations are 2^21-2^23), the calibration size (a step on the card
+# costs more than a launch there) and the fingerprint's timed sizes.
+ENGINE_BASE = 1 << 22
+ENGINE_QUERIES = 16
+ENGINE_CAL_N = 1 << 20
+FINGERPRINT_NS = (N_DD, N_MAIN)
+ENGINE_KERNELS = ("partition_hist_fused", "radix_scatter", "hash_bucket",
+                  "radix_hist", "seg_agg")
 
 
 def log(*a):
@@ -1211,6 +1232,223 @@ def time_lm_kernels(dev) -> dict[str, dict]:
     return out
 
 
+def fingerprint_ms(dev) -> dict:
+    """The engine's content fingerprint of a build relation on the card:
+    the pull of both columns to the host (``.cpu()``) and the SHA-1 over
+    their bytes as ``relation_fingerprint`` takes them, each timed alone,
+    and ``relation_fingerprint`` as one call."""
+    import hashlib
+    out = {}
+    for n in FINGERPRINT_NS:
+        rel = uniform_relation(n, seed=1, device=dev)
+        eng.relation_fingerprint(rel, 0)                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        key, rid = rel.key.cpu().numpy(), rel.rid.cpu().numpy()
+        t1 = time.perf_counter()
+        h = hashlib.sha1()
+        h.update(key.tobytes())
+        h.update(rid.tobytes())
+        h.hexdigest()
+        t2 = time.perf_counter()
+        eng.relation_fingerprint(rel, 0)
+        t3 = time.perf_counter()
+        out[n] = {"bytes": rel.nbytes, "pull_ms": (t1 - t0) * 1e3,
+                  "hash_ms": (t2 - t1) * 1e3, "call_ms": (t3 - t2) * 1e3}
+        log(f"  fingerprint n={n}: {rel.nbytes} B, pull "
+            f"{out[n]['pull_ms']:.3f} ms, SHA-1 {out[n]['hash_ms']:.3f} ms,"
+            f" relation_fingerprint {out[n]['call_ms']:.3f} ms")
+    return out
+
+
+def log_calibration(name: str, planner) -> dict:
+    """A calibrated planner's measured specs: per-step unit costs per
+    group, the PassPlanner's n1-n3 costs and the host hand-off."""
+    pp = planner.pass_planner
+    cal = {"u_ns_per_item": {k: [c * 1e9, g * 1e9] for k, (c, g)
+                             in planner.u_overrides.items()},
+           "pass_ns_per_item": {"C": [pp.u_n1 * 1e9, pp.u_n2 * 1e9,
+                                      pp.u_n3 * 1e9],
+                                "G": [pp.u_g[k] * 1e9
+                                      for k in ("n1", "n2", "n3")]},
+           "handoff_latency_s": planner.handoff_latency_s,
+           "handoff_bytes_per_s": planner.handoff_bw_bytes_per_s}
+    log(f"  {name}: unit costs, ns per item [C (host), G (card)]:")
+    for k, (c, g) in cal["u_ns_per_item"].items():
+        log(f"    {k}: C {c:.4f}, G {g:.4f}")
+    for grp, (n1, n2, n3) in cal["pass_ns_per_item"].items():
+        log(f"    PassPlanner {grp}: n1 {n1:.4f}, n2 {n2:.4f}, n3 {n3:.4f} "
+            f"ns per item")
+    log(f"    hand-off: latency {planner.handoff_latency_s * 1e6:.3f} us, "
+        f"bandwidth {planner.handoff_bw_bytes_per_s / 1e9:.4f} GB/s")
+    return cal
+
+
+def run_engine(dev, phj_join_ms: float) -> dict:
+    """Phase 11: the join-query engine on the card, through its entry
+    points: ``QueryPlanner.calibrated``, then ``JoinQueryService`` serving
+    the mixed workload with two workers, the paper's default query three
+    times, a group-by, a semi and an anti join and a query under one
+    injected kernel fault.  Every outcome is verified against a NumPy
+    oracle; the launch counts are read over the service's runs."""
+    t_phase = time.perf_counter()
+    out = {"fingerprint": fingerprint_ms(dev)}
+    cp = CoProcessor(c_device="cpu", g_device=dev)
+    t0 = time.perf_counter()
+    planner = eng.QueryPlanner.calibrated(cp, n=ENGINE_CAL_N, reps=2,
+                                          delta=0.1)
+    t1 = time.perf_counter()
+    default = eng.QueryPlanner.calibrated(cp, reps=2, delta=0.1)
+    log(f"  calibrated in {t1 - t0:.1f} s (n = {ENGINE_CAL_N}) and "
+        f"{time.perf_counter() - t1:.1f} s (n = 32768, the default)")
+    out["calibration"] = {ENGINE_CAL_N: log_calibration(
+        f"n = {ENGINE_CAL_N}", planner),
+        32768: log_calibration("n = 32768", default)}
+
+    svc = eng.JoinQueryService(cp=cp, planner=planner, num_workers=2,
+                               cache_budget_bytes=2 << 30)
+    # Fingerprint time: the service's own content hashes, timed here.
+    fp_s = [0.0]
+    fingerprint = svc._fingerprint
+
+    def timed_fingerprint(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fingerprint(*a, **kw)
+        finally:
+            fp_s[0] += time.perf_counter() - t
+
+    svc._fingerprint = timed_fingerprint
+    qs = eng.make_workload("mixed", num_queries=ENGINE_QUERIES,
+                           base_tuples=ENGINE_BASE, seed=42, device=dev)
+    torch.cuda.synchronize()
+    counts = {}
+
+    def served(what: str, fn):
+        torch.cuda.synchronize()
+        rk.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        c = rk.launch_counts()
+        log(f"  {what}: launches {c}")
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        return res
+
+    t0 = time.perf_counter()
+    outs = served("mixed workload", lambda: svc.run(qs))
+    elapsed = time.perf_counter() - t0
+    for q, o in zip(qs, outs):
+        log(f"  q{q.query_id} {q.tag}: |R| {q.build.size}, |S| "
+            f"{q.probe.size}, plan {o.plan.algorithm}/{o.plan.scheme}"
+            f"{' cached' if o.plan.cached else ''}, cache hit "
+            f"{o.cache_hit}, partition hit {o.partition_cache_hit}/"
+            f"{o.probe_partition_cache_hit}, wall {o.wall_s * 1e3:.3f} ms, "
+            f"queued {o.queued_s * 1e3:.3f} ms, phases {phase_ms(o.timing)}")
+        assert o.wall_s >= sum(o.timing.phase_s.values()), q.query_id
+        verify(o.result, join_oracle(q.build, q.probe),
+               f"engine q{q.query_id} {q.tag}")
+    st = svc.stats()
+    ledger = st["host_transfer_ledger"]
+    mixed = {"queries_per_s": len(qs) / elapsed, "elapsed_s": elapsed,
+             "wall_ms": [o.wall_s * 1e3 for o in outs],
+             "plans": [f"{o.plan.algorithm}/{o.plan.scheme}" for o in outs],
+             "cache": st["cache"], "plan_counts":
+                 st["planner"]["plan_counts"],
+             "online": st["planner"]["online"],
+             "fingerprint_bytes": ledger["by_cause"]["fingerprint"],
+             "fingerprint_ms": fp_s[0] * 1e3}
+    log(f"  mixed: {len(qs)} queries in {elapsed:.3f} s, "
+        f"{mixed['queries_per_s']:.3f} queries/s; table cache hit rate "
+        f"{st['cache']['hit_rate']:.3f} ({st['cache']['hits']} hits), "
+        f"partition hits {st['cache']['partition_hits']}/"
+        f"{st['cache']['probe_partition_hits']}")
+    log(f"  plan counts {mixed['plan_counts']}; online scales "
+        f"{mixed['online']}")
+    log(f"  ledger: fingerprint {mixed['fingerprint_bytes']} B pulled, "
+        f"{mixed['fingerprint_ms']:.3f} ms in the service's fingerprints")
+    out["mixed"] = mixed
+
+    # The paper's default query, through the service: cold, then the
+    # repeats that find its build table or partition layouts resident.
+    build = uniform_relation(N_MAIN, seed=1, device=dev)
+    probe = uniform_relation(N_MAIN, seed=2, device=dev)
+    exp = uniform_oracle(N_MAIN)
+    runs = []
+    for i in range(3):
+        o = served(f"default query run {i}", lambda: svc.execute(
+            eng.JoinQuery(build, probe, query_id=100 + i, tag="default")))
+        log(f"  default query run {i}: plan {o.plan.algorithm}/"
+            f"{o.plan.scheme}{' cached' if o.plan.cached else ''}, "
+            f"schedule {o.plan.schedule}, ratios {o.plan.partition_ratio}"
+            f"/{o.plan.join_ratio}, cache hit {o.cache_hit}, "
+            f"partition hit {o.partition_cache_hit}/"
+            f"{o.probe_partition_cache_hit}, wall {o.wall_s * 1e3:.3f} ms,"
+            f" phases {phase_ms(o.timing)} (phj_join in phase 4: "
+            f"{phj_join_ms:.3f} ms)")
+        verify(o.result, exp, f"engine default query run {i}")
+        runs.append({"plan": f"{o.plan.algorithm}/{o.plan.scheme}",
+                     "cache_hit": o.cache_hit,
+                     "partition_hit": [o.partition_cache_hit,
+                                       o.probe_partition_cache_hit],
+                     "wall_ms": o.wall_s * 1e3,
+                     "phase_ms": phase_ms(o.timing)})
+    out["default_query"] = runs
+
+    keys, value_sets = group_data(N_MAIN, seed=N_MAIN)
+    rel = Relation(torch.arange(N_MAIN, dtype=torch.int32, device=dev),
+                   torch.from_numpy(keys).to(dev))
+    vals = value_sets["full"]
+    o = served("group-by", lambda: svc.execute(eng.GroupByQuery(
+        rel, torch.from_numpy(vals).to(dev), query_id=200)))
+    log(f"  group-by n={N_MAIN}: plan {o.plan.algorithm}/{o.plan.scheme},"
+        f" schedule {o.plan.schedule}, wall {o.wall_s * 1e3:.3f} ms, "
+        f"phases {phase_ms(o.timing)}")
+    verify_groups(o.result, group_oracle(keys, vals), "engine group-by")
+    out["groupby"] = {"plan": f"{o.plan.algorithm}/{o.plan.scheme}",
+                      "wall_ms": o.wall_s * 1e3,
+                      "phase_ms": phase_ms(o.timing)}
+
+    vb = uniform_relation(N_DD, seed=1, device=dev)
+    vp = uniform_relation(N_DD, seed=2, device=dev)
+    for kind in ("semi", "anti"):
+        o = served(f"{kind} join", lambda: svc.execute(eng.JoinQuery(
+            vb, vp, query_id=300, tag=kind, kind=kind)))
+        log(f"  {kind} n={N_DD}: plan {o.plan.algorithm}/{o.plan.scheme}"
+            f"{' cached' if o.plan.cached else ''}, wall "
+            f"{o.wall_s * 1e3:.3f} ms, phases {phase_ms(o.timing)}")
+        verify(o.result, jv.join_variant_oracle(vb, vp, kind),
+               f"engine {kind} join")
+        out[kind] = {"wall_ms": o.wall_s * 1e3,
+                     "plan": f"{o.plan.algorithm}/{o.plan.scheme}"}
+
+    # One kernel fault on the worker path: the recovery ladder retries.
+    fb = uniform_relation(N_DD, seed=5, device=dev)
+    fpr = uniform_relation(N_DD, seed=6, device=dev)
+    inj = eng.FaultInjector(seed=0, sites={"kernel": eng.FaultSpec(
+        at=(1,))})
+    with eng.injected(inj):
+        o = served("fault-injected query", lambda: svc.submit(
+            eng.JoinQuery(fb, fpr, query_id=400, tag="fault"))())
+    events = [e["what"] for e in svc.metrics.events("recovery")]
+    log(f"  fault-injected query: injector {inj.stats()}, recovery "
+        f"{events}, plan {o.plan.algorithm}/{o.plan.scheme}, reference "
+        f"path {bool(o.timing.notes.get('reference_path'))}, wall "
+        f"{o.wall_s * 1e3:.3f} ms")
+    assert inj.stats()["fired"] == {"kernel": 1} and events, events
+    verify(o.result, join_oracle(fb, fpr), "engine fault-injected query")
+    out["fault"] = {"recovery": events}
+    svc.close()
+
+    log(f"  engine launches {counts}")
+    for name in ENGINE_KERNELS:
+        assert counts.get(name, 0) > 0, f"the engine never launched {name}"
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 11 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1259,6 +1497,9 @@ def main() -> int:
             cfg.dtype) == (38, 2048, 32, 8192, "bfloat16"), cfg
     lm = run_lm_serving(dev, cfg)
 
+    log_phase("[11] main path: the join-query engine")
+    engine = run_engine(dev, main_path["wall_ms"])
+
     log_phase("[6] kernel times at the main paths' shapes")
     times = time_kernels(dev, main_path["schedule"])
     other_times = time_group_kernels(dev)
@@ -1275,7 +1516,8 @@ def main() -> int:
                "shj_gpu_only":
                    shj[f"shj GPU_ONLY shared n={N_MAIN}"]["launches"],
                "lm_generate": next(iter(lm["batches"].values()))[
-                   "launches"]}
+                   "launches"],
+               "engine_service": engine["launches"]}
     path_of = {"seg_agg": "groupby_gpu_only_partitioned",
                "hash_bucket": "groupby_gpu_only_partitioned",
                "radix_hist": "groupby_gpu_only_partitioned",
@@ -1299,7 +1541,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
             "launches": by_path[path][name], "launches_path": path,
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in by_path.items()},
             "max_abs_err": err[name], "bit_exact": err[name] == 0,
             "bound_by": "bytes", **row})
     for b in lm["batches"].values():

@@ -1,7 +1,10 @@
 """Cost-model-guided radix pass planner (paper §3.1's tuning knob).
 
 A copy of ``repro/core/pass_planner.py`` (NumPy only); calibration runs
-on a port ``DeviceGroup``.
+on a port ``DeviceGroup``.  One addition: ``u_g``, the G group's measured
+n1-n3 costs.  The reference's groups are two slices of one backend, so it
+prices G's share of a pass at C's costs; the port's G group is the card,
+up to three orders of magnitude faster per item than the host.
 
 The paper tunes the partition phase's two knobs — radix bits per pass and
 number of passes — "according to the memory hierarchy".  The seed hard-coded
@@ -87,10 +90,14 @@ class PassPlanner:
     def __init__(self, u_n1: float, u_n2: float, u_n3: float, *,
                  capacity_bits: int = DEFAULT_CAPACITY_BITS,
                  fanout_penalty: float = DEFAULT_FANOUT_PENALTY,
-                 part_tuples: int = DEFAULT_PART_TUPLES):
+                 part_tuples: int = DEFAULT_PART_TUPLES,
+                 u_g: dict[str, float] | None = None):
         self.u_n1 = float(u_n1)
         self.u_n2 = float(u_n2)
         self.u_n3 = float(u_n3)
+        # Measured n1-n3 seconds/item on the G group; None mirrors C.
+        self.u_g = ({k: float(u_g[k]) for k in ("n1", "n2", "n3")}
+                    if u_g is not None else None)
         self.capacity_bits = int(capacity_bits)
         self.fanout_penalty = float(fanout_penalty)
         self.part_tuples = int(part_tuples)
@@ -106,7 +113,8 @@ class PassPlanner:
     @classmethod
     def from_measurements(cls, unit_costs: dict[str, float], **kw
                           ) -> "PassPlanner":
-        """From ``calibrate.measure_unit_costs`` output for one pass."""
+        """From ``calibrate.measure_unit_costs`` output for one pass (on
+        the C group; ``u_g=`` the same for the G group)."""
         return cls(unit_costs["n1"], unit_costs["n2"], unit_costs["n3"],
                    **kw)
 
@@ -128,6 +136,8 @@ class PassPlanner:
         The C-group runs at this planner's calibrated unit costs with n3
         scaled by the fanout penalty; schemes can re-optimize ratios over
         it (``optimize_pl``/``optimize_dd``) exactly as for SHJ series.
+        The G group runs at ``device_g``'s analytic costs when given, else
+        at the measured ``u_g``, else at C's.
         """
         from .phj import PARTITION_COSTS, partition_series
         series = partition_series(0)
@@ -135,11 +145,14 @@ class PassPlanner:
         u_c = {"n1": self.u_n1, "n2": self.u_n2, "n3": self.u_n3 * fac}
         dev_c = DeviceSpec("planner_c", 1.0, 1.0, 1.0)
         dev_g = device_g or dev_c
-        if device_g is None:
-            u_g = dict(u_c)  # single-group planner: G mirrors C
-        else:
+        if device_g is not None:
             u_g = {nm: device_g.unit_cost(PARTITION_COSTS[nm]) for nm in u_c}
             u_g["n3"] *= fac
+        elif self.u_g is not None:
+            u_g = dict(self.u_g)
+            u_g["n3"] *= fac
+        else:
+            u_g = dict(u_c)  # single-group planner: G mirrors C
         overrides = {nm: (u_c[nm], u_g[nm]) for nm in u_c}
         return series_model_from_costs(series.steps, [n] * 3, dev_c, dev_g,
                                        link, u_overrides=overrides)

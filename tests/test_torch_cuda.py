@@ -604,3 +604,69 @@ def test_lm_generate_on_card_matches_cpu(dev, arch):
            / wl[..., :v].abs().max()).item()
     assert rel < 1e-4, rel
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_service_on_card_is_exact_and_synced(dev, workers):
+    """``JoinQueryService`` over a C group on the host and a G group on
+    the card: results exact against the oracle, each outcome's wall time
+    no less than the sum of its synchronized phase times, and a repeated
+    build relation served from the cache without a build."""
+    import repro_torch.engine as te
+
+    cp = tc.CoProcessor(c_device="cpu", g_device=dev)
+    svc = te.JoinQueryService(cp=cp, num_workers=workers)
+    qs = te.make_workload("mixed", 12, base_tuples=1 << 14, seed=0,
+                          device=dev)
+    reset_launch_counts()
+    outs = svc.run(qs)
+    counts = launch_counts()
+    # The first query again, after the stream: its table is resident.
+    qs.append(te.JoinQuery(qs[0].build, qs[0].probe, query_id=99))
+    outs.append(svc.execute(qs[-1]))
+    assert counts["hash_bucket"] > 0
+    for q, o in zip(qs, outs):
+        exp = tc.join_oracle(q.build, q.probe)
+        assert np.array_equal(o.result.valid_pairs(), exp), q.tag
+        assert o.wall_s >= sum(o.timing.phase_s.values()) > 0
+    hits = [o for o in outs if o.cache_hit]
+    assert outs[-1].cache_hit
+    assert all(o.timing.phase_s["build"] == 0.0 for o in hits)
+    assert svc.stats()["cache"]["hits"] == len(hits)
+    svc.close()
+
+
+def test_service_on_card_runs_phj_groupby_and_faults(dev):
+    """PHJ plans with partition-layout reuse, a group-by and a kernel
+    fault through the recovery ladder, all on the card and exact."""
+    import repro_torch.engine as te
+
+    cp = tc.CoProcessor(c_device="cpu", g_device=dev)
+    planner = te.QueryPlanner(cache_bytes=1 << 10, rand_penalty=8.0,
+                              phj_overhead_s=0.0)
+    svc = te.JoinQueryService(cp=cp, planner=planner, num_workers=0)
+    n = 1 << 15
+    b = tc.uniform_relation(n, seed=1, device=dev)
+    p = tc.uniform_relation(n, seed=2, device=dev)
+    exp = tc.join_oracle(b, p)
+    reset_launch_counts()
+    outs = [svc.execute(te.JoinQuery(b, p, query_id=i)) for i in range(2)]
+    assert launch_counts()["partition_hist_fused"] > 0
+    assert [o.plan.algorithm for o in outs] == ["phj", "phj"]
+    assert [o.partition_cache_hit for o in outs] == [False, True]
+    for o in outs:
+        assert np.array_equal(o.result.valid_pairs(), exp)
+    keys = tc.uniform_relation(n, key_range=n // 64, seed=3, device=dev)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)
+    out = svc.execute(te.GroupByQuery(keys, vals, query_id=3))
+    want = tops.groupby_ref(keys.key.cpu().numpy(), np.arange(n))
+    got = out.result.sorted()
+    for f in ("keys", "counts", "sums", "mins", "maxs"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    svc = te.JoinQueryService(cp=cp, num_workers=0,
+                              retry=te.RetryPolicy(base_backoff_s=0.0))
+    with te.injected(te.FaultInjector(seed=7, sites={
+            "kernel": te.FaultSpec(at=(1,))})):
+        o = svc._run_with_recovery(te.JoinQuery(b, p, query_id=4))
+    assert np.array_equal(o.result.valid_pairs(), exp)
+    assert [e["what"] for e in svc.metrics.events("recovery")] == ["retry"]

@@ -34,7 +34,16 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.layers.ssd",
             "repro_torch.kernels.flash_attn.flash_attn",
             "repro_torch.kernels.ssd.ssd", "repro_torch.serve.engine",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve",
+            "repro_torch.obs", "repro_torch.obs.metrics",
+            "repro_torch.obs.audit", "repro_torch.obs.cardinality",
+            "repro_torch.obs.ledger", "repro_torch.obs.drift",
+            "repro_torch.obs.slo", "repro_torch.obs.flight",
+            "repro_torch.engine", "repro_torch.engine.admission",
+            "repro_torch.engine.resilience", "repro_torch.engine.faults",
+            "repro_torch.engine.table_cache", "repro_torch.engine.planner",
+            "repro_torch.engine.service",
+            "repro_torch.engine.workload"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
