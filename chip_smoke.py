@@ -45,6 +45,23 @@ just after, and verifies each against a NumPy oracle:
   result against a NumPy oracle; the content fingerprint's pull and hash
   are timed at 2^22 and 2^24.
 
+* the multi-join query pipeline (phase 12), through ``PipelineExecutor``
+  over a ``JoinQueryService`` with phase 11's calibrated planner and two
+  workers: ``examples/query_pipeline.py``'s star with the fact table at
+  2^24 and three 2^21 dimensions (the chosen, textual and worst orders
+  priced; run cold and warm under the fused hand-off and once under the
+  host hand-off), the chain 2^24 -> 2^22 -> 2^20, five
+  ``WorkloadGenerator(2^22).analytic()`` queries (all four edge-kind
+  pairs, all five aggregates, group-by sinks on kernel C), a replay of six
+  ``star()`` queries, and an estimator-hostile skewed star at 2^22 static
+  and adaptive, each exact against its NumPy oracle, with zero hand-off
+  and fingerprint bytes on every fused run; the SHA-1 of the base key
+  columns and the exact match counts are timed inside the runs.  Then the
+  paper's §3.3 mechanisms at 2^24: divergence grouping of a skewed
+  probe's p2 key counts, the scan allocator, and ``run_map_series`` over
+  ``partition_series(0)`` with the C group on the host and a ratio that
+  moves, bit-equal to one-device ``run_series``.
+
 Kernel F (partitioned probe) is held against its plain version first,
 like A-E, on sorted and on permuted rows (K from 1 to 2^20) and on
 ``build_partitioned_table``'s rows of negative build keys, and again at
@@ -1444,8 +1461,539 @@ def run_engine(dev, phj_join_ms: float) -> dict:
     for name in ENGINE_KERNELS:
         assert counts.get(name, 0) > 0, f"the engine never launched {name}"
     out["launches"] = counts
+    out["planner"] = planner
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 11 took {out['phase_s']:.1f} s")
+    return out
+
+
+# Phase 12, the multi-join query pipeline: examples/query_pipeline.py's
+# star with the fact table at the paper's default 2^24 (§5.1) and the
+# dimensions at benchmarks/query_bench.py's fact/8; the chain 2^24 -> 2^22
+# -> 2^20; five analytic queries at WorkloadGenerator base 2^22; a six-star
+# replay at base 2^21; the estimator-hostile skewed star at 2^22; the §3.3
+# mechanisms at 2^24.
+QP_FACT = N_MAIN
+QP_DIMS = (1 << 21,) * 3
+QP_CHAIN = (N_MAIN, 1 << 22, 1 << 20)
+QP_ANALYTIC_BASE = 1 << 22
+QP_ANALYTIC_N = 5
+QP_REPLAY_BASE = 1 << 21
+QP_REPLAY_N = 6
+QP_SKEW_FACT = 1 << 22
+QP_MECH_N = N_MAIN
+QP_MECH_RATIOS = (0.25, 0.0, 0.5)   # n1, n2, n3: the boundary moves twice
+PARTITION_KERNELS = ("partition_hist_fused", "radix_scatter", "radix_hist")
+
+
+def skewed_star(fact: int, seed: int = 0):
+    """The estimator-hostile 3-join star of benchmarks/query_bench.py's
+    ``_skewed_star``, built on the port's query IR: ``fact.fk0`` is half
+    junk, so the first join's estimate lands about 16x under its true
+    cardinality, and the d2 edge (a shrink at the true intermediate size,
+    a growth at the estimated one) flips which tail order is cheapest."""
+    from repro_torch.queries import Join, Query, Table
+
+    scale = max(1, fact // 8192)
+    rng = np.random.default_rng(seed)
+    d0_n, d1_n = 128 * scale, 144 * scale
+    d2_distinct, d2_rep, fk2_range = 40 * scale, 10, 4000 * scale
+    fk0 = np.where(rng.random(fact) < 0.5,
+                   rng.integers(0, d0_n, fact),
+                   rng.integers(10 * fact, 20 * fact, fact)).astype(np.int32)
+    tables = {
+        "fact": Table("fact", {
+            "fk0": fk0,
+            "fk1": rng.integers(0, d1_n, fact).astype(np.int32),
+            "fk2": rng.integers(0, fk2_range, fact).astype(np.int32),
+            "v": rng.integers(0, 100, fact).astype(np.int32)}),
+        "d0": Table("d0", {"id": np.arange(d0_n, dtype=np.int32),
+                           "a": rng.integers(0, 10, d0_n).astype(np.int32)}),
+        "d1": Table("d1", {"id": np.arange(d1_n, dtype=np.int32),
+                           "b": rng.integers(0, 10, d1_n).astype(np.int32)}),
+        "d2": Table("d2", {
+            "id": np.repeat(np.arange(d2_distinct, dtype=np.int32), d2_rep),
+            "c": rng.integers(0, 10,
+                              d2_distinct * d2_rep).astype(np.int32)})}
+    return Query(tables=tables,
+                 joins=(Join("fact", "fk0", "d0", "id"),
+                        Join("fact", "fk1", "d1", "id"),
+                        Join("fact", "fk2", "d2", "id")),
+                 aggregate=("count",))
+
+
+def verify_pipeline(res, ref, what: str) -> None:
+    """Rows and aggregate equal to ``reference_execute``'s."""
+    got = res.rows_array()
+    assert got.shape == ref[0].shape and np.array_equal(got, ref[0]), what
+    assert res.aggregate == ref[1], (what, res.aggregate, ref[1])
+    log(f"  {what}: {res.rows} rows, aggregate {res.aggregate}, verified "
+        f"against reference_execute")
+
+
+def verify_chain(q, res, what: str) -> None:
+    """The chain's oracle: every ``id`` is a permutation and every
+    ``nxt`` lands in the next table, so each T0 row joins exactly one row
+    of each later table, found through the inverse permutations.  Each
+    result row is matched to its T0 row through ``T0.id`` (unique), and
+    compared column by column."""
+    names = sorted(q.tables)
+    cols = [q.tables[t].columns for t in names]
+
+    def inverse(ids):
+        inv = np.empty_like(ids)
+        inv[ids] = np.arange(ids.shape[0], dtype=ids.dtype)
+        return inv
+
+    got = res.columns
+    want_names = sorted(f"{t}.{c}" for t, tcols in zip(names, cols)
+                        for c in tcols)
+    assert sorted(got) == want_names, (what, sorted(got))
+    assert res.aggregate == res.rows == cols[0]["id"].shape[0], what
+    rows = inverse(cols[0]["id"])[got[f"{names[0]}.id"]]   # T0 rows
+    assert np.array_equal(np.sort(rows), np.arange(rows.shape[0])), what
+    for i, (t, tcols) in enumerate(zip(names, cols)):
+        if i:
+            rows = inverse(tcols["id"])[cols[i - 1]["nxt"][rows]]
+        for c, v in tcols.items():
+            assert np.array_equal(got[f"{t}.{c}"], v[rows]), (what, t, c)
+    log(f"  {what}: {res.rows} rows, verified against the chain's "
+        f"permutation oracle")
+
+
+def star_oracle(q):
+    """``reference_execute`` for a star whose every edge runs from ``F``
+    to a dimension's unique ``id`` (the generators' dimensions are
+    permutations, and every foreign key lies within them): each fact row
+    meets at most one row of each dimension, so inner and semi edges keep
+    the fact rows whose key survives the dimension's filters, anti edges
+    the others, and left-outer edges keep every row, NULL-padded.  Lookup
+    tables replace the reference's sort-merge joins, and grouping is by
+    sort and ``reduceat`` (``group_oracle``)."""
+    from repro_torch import queries as tq
+
+    f = q.tables["F"]
+    assert not f.filters
+    keep = np.ones(f.size, bool)
+    attach = []
+    for j in q.joins:
+        d = q.tables[j.right]
+        ids = d.columns["id"]
+        assert (j.left, j.right_col) == ("F", "id")
+        assert np.bincount(ids).max() <= 1, "dimension ids not unique"
+        live = np.ones(d.size, bool)
+        for flt in d.filters:
+            live &= flt.mask(d.columns[flt.column])
+        row = np.full(int(ids.max()) + 1, -1, np.int64)
+        row[ids[live]] = np.flatnonzero(live)
+        fk = f.columns[j.left_col]
+        assert fk.min() >= 0 and fk.max() <= ids.max()
+        r = row[fk]
+        if j.kind in ("inner", "semi"):
+            keep &= r >= 0
+        elif j.kind == "anti":
+            keep &= r < 0
+        if j.kind in ("inner", "left_outer"):
+            attach.append((d, r))
+    cols = {f"F.{c}": v[keep] for c, v in f.columns.items()}
+    for d, r in attach:
+        r = r[keep]
+        for c, v in d.columns.items():
+            cols[f"{d.name}.{c}"] = np.where(r >= 0, v[np.maximum(r, 0)],
+                                             np.int32(tq.NULL_VALUE))
+    if not q.group_by:
+        return tq.rows_array(cols), tq.apply_aggregate(cols, q.aggregate)
+    (key_q,) = q.group_by
+    agg = q.aggregate or ("count",)
+    if cols[key_q].shape[0] == 0:
+        return tq.rows_array(tq.apply_group_by(cols, q.group_by, agg)), None
+    vals = (cols[agg[1]] if agg[0] != "count"
+            else np.zeros(cols[key_q].shape[0], np.int32))
+    k, cnt, sm, mn, mx = group_oracle(cols[key_q], vals)
+    val = {"count": cnt.astype(np.int32), "sum": sm.astype(np.int64),
+           "min": mn.astype(np.int32), "max": mx.astype(np.int32),
+           "avg": sm.astype(np.float64) / np.maximum(cnt, 1)}[agg[0]]
+    return tq.rows_array({key_q: k.astype(np.int32),
+                          tq.agg_output_name(agg): val}), None
+
+
+def stage_records(res) -> list[dict]:
+    return [{"tag": o.tag,
+             "plan": f"{o.plan.algorithm}/{o.plan.scheme}",
+             "schedule": list(o.plan.schedule) if o.plan.schedule else None,
+             "ratios": [o.plan.partition_ratio, o.plan.join_ratio],
+             "cache_hit": o.cache_hit,
+             "partition_hit": [o.partition_cache_hit,
+                               o.probe_partition_cache_hit],
+             "wall_ms": o.wall_s * 1e3, "phase_ms": phase_ms(o.timing),
+             "host_bytes_moved": o.host_bytes_moved}
+            for o in res.outcomes]
+
+
+def run_query_pipeline(dev, planner) -> dict:
+    """Phase 12: the multi-join query pipeline on the card through
+    ``PipelineExecutor`` (``JoinQueryService``, two workers, phase 11's
+    calibrated planner): the star cold and warm under the fused hand-off
+    and once under the host hand-off, the chain, five analytic queries,
+    a six-star replay and the skewed star static and adaptive, each exact
+    against its oracle; then the §3.3 mechanisms.  The SHA-1 of base-table
+    key columns (``_ScanView.col_fp``) and the exact match counts
+    (``_match_stats``, synchronized around) are timed inside the runs."""
+    import threading
+
+    from repro_torch import queries as tq
+    from repro_torch.queries import executor as qexec
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    clocks = {"sha1_s": 0.0, "match_s": 0.0}
+    lock = threading.Lock()
+    orig_fp, orig_match = qexec._ScanView.col_fp, qexec._match_stats
+
+    def timed_fp(self, q):
+        t = time.perf_counter()
+        try:
+            return orig_fp(self, q)
+        finally:
+            with lock:
+                clocks["sha1_s"] += time.perf_counter() - t
+
+    def timed_match(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = orig_match(*a, **kw)
+        int(r)
+        with lock:
+            clocks["match_s"] += time.perf_counter() - t
+        return r
+
+    qexec._ScanView.col_fp, qexec._match_stats = timed_fp, timed_match
+    counts: dict = {}
+    partitioned = []    # did any stage or sink run the partition passes?
+
+    def served(what: str, svc, ex, q, physical=None):
+        """One pipeline run with its launches counted, its clocks and
+        ledger read before and after, the fused invariants checked."""
+        fp0 = svc.ledger.by_cause()["fingerprint"]
+        c0 = dict(clocks)
+        torch.cuda.synchronize()
+        rk.reset_launch_counts()
+        res = ex.run(q, physical)
+        torch.cuda.synchronize()
+        c = rk.launch_counts()
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        partitioned.extend(bool(o.plan.schedule) for o in res.outcomes)
+        rec = {"wall_ms": res.wall_s * 1e3, "rows": res.rows,
+               "aggregate": res.aggregate, "stages": stage_records(res),
+               "host_bytes_moved": res.host_bytes_moved,
+               "fingerprint_bytes":
+                   svc.ledger.by_cause()["fingerprint"] - fp0,
+               "sha1_ms": (clocks["sha1_s"] - c0["sha1_s"]) * 1e3,
+               "match_ms": (clocks["match_s"] - c0["match_s"]) * 1e3,
+               "replans": res.replans, "launches": c}
+        log(f"  {what}: wall {rec['wall_ms']:.3f} ms, host bytes "
+            f"{rec['host_bytes_moved']}, fingerprint bytes "
+            f"{rec['fingerprint_bytes']}, SHA-1 {rec['sha1_ms']:.3f} ms, "
+            f"match counts {rec['match_ms']:.3f} ms, launches {c}")
+        for s in rec["stages"]:
+            log(f"    {s['tag']}: {s['plan']} schedule {s['schedule']} "
+                f"ratios {s['ratios']}, cache hit {s['cache_hit']}, "
+                f"partition hit {s['partition_hit']}, wall "
+                f"{s['wall_ms']:.3f} ms, phases {s['phase_ms']}")
+        assert res.wall_s >= sum(sum(o.timing.phase_s.values())
+                                 for o in res.outcomes), what
+        if ex.handoff == "device":
+            assert rec["host_bytes_moved"] == 0, what
+            assert rec["fingerprint_bytes"] == 0, what
+        return res, rec
+
+    cp = CoProcessor(c_device="cpu", g_device=dev)
+    svc = eng.JoinQueryService(cp=cp, planner=planner, num_workers=2,
+                               cache_budget_bytes=2 << 30)
+    try:
+        opt = tq.JoinOrderOptimizer(planner, handoff="device")
+        ex = tq.PipelineExecutor(service=svc, optimizer=opt)
+
+        # -- the star: chosen vs textual vs worst order, cold, warm, host.
+        q = tq.make_star_query(QP_FACT, list(QP_DIMS),
+                               selectivities=[0.02, None, 0.5], seed=17,
+                               aggregate=("count",))
+        t0 = time.perf_counter()
+        ref = tq.reference_execute(q)
+        log(f"  star {QP_FACT} x {list(QP_DIMS)}: oracle "
+            f"{time.perf_counter() - t0:.1f} s on the host")
+        t0 = time.perf_counter()
+        chosen = opt.optimize(q)
+        log(f"  optimize: {time.perf_counter() - t0:.3f} s on the host "
+            f"(the first call counts each column's distinct values)")
+        est = {"chosen": chosen, "textual": opt.price_order(q, q.joins),
+               "worst": opt.worst_order(q)}
+        for k, p in est.items():
+            log(f"  {k} order {[str(j) for j in p.order]}: est "
+                f"{p.est_total_s * 1e3:.3f} ms")
+        star = {"est_ms": {k: p.est_total_s * 1e3 for k, p in est.items()},
+                "orders": {k: [str(j) for j in p.order]
+                           for k, p in est.items()}}
+        for run in ("cold", "warm"):
+            res, rec = served(f"star fused {run}", svc, ex, q, chosen)
+            verify_pipeline(res, ref, f"star fused {run}")
+            star[run] = rec
+        host_ex = tq.PipelineExecutor(
+            service=svc, handoff="host",
+            optimizer=tq.JoinOrderOptimizer(planner, handoff="host"))
+        res, rec = served("star host", svc, host_ex, q)
+        verify_pipeline(res, ref, "star host")
+        star["host"] = rec
+        out["star"] = star
+
+        log(f"  (star done at {time.perf_counter() - t_phase:.1f} s)")
+        # -- the chain, and its largest stage's match count alone.
+        qc = tq.make_chain_query(list(QP_CHAIN), seed=3)
+        log(f"  (chain generated at {time.perf_counter() - t_phase:.1f} s)")
+        res, rec = served("chain", svc, ex, qc)
+        log(f"  (chain run at {time.perf_counter() - t_phase:.1f} s)")
+        verify_chain(qc, res, "chain")
+        bkey = torch.from_numpy(qc.tables["T1"].columns["id"]).to(dev)
+        pkey = torch.from_numpy(qc.tables["T0"].columns["nxt"]).to(dev)
+        assert int(orig_match(bkey, pkey, "inner")) == QP_CHAIN[0]
+        rec["match_alone_ms"] = cuda_ms(
+            lambda: orig_match(bkey, pkey, "inner"))
+        log(f"  _match_stats alone, probe {QP_CHAIN[0]} x build "
+            f"{QP_CHAIN[1]}: {rec['match_alone_ms']:.5f} ms (CUDA events)")
+        out["chain"] = rec
+
+        log(f"  (chain done at {time.perf_counter() - t_phase:.1f} s)")
+        # -- analytic: the four edge-kind pairs, the five aggregates.
+        gen = eng.WorkloadGenerator(QP_ANALYTIC_BASE, seed=42, device=dev)
+        analytic = []
+        for i in range(QP_ANALYTIC_N):
+            qa = gen.analytic()
+            kinds = [j.kind for j in qa.joins]
+            t0 = time.perf_counter()
+            rf = star_oracle(qa)
+            log(f"  analytic {i}: fact {qa.tables['F'].size}, oracle "
+                f"{time.perf_counter() - t0:.1f} s on the host")
+            res, rec = served(f"analytic {i} {kinds} {qa.aggregate}", svc,
+                              ex, qa)
+            verify_pipeline(res, rf, f"analytic {i}")
+            rec.update(kinds=kinds, aggregate_kind=list(qa.aggregate),
+                       fact=qa.tables["F"].size)
+            analytic.append(rec)
+        assert len({tuple(a["kinds"]) for a in analytic}) == 4
+        assert sum(a["launches"]["seg_agg"] for a in analytic) > 0
+        out["analytic"] = analytic
+
+        log(f"  (analytic done at {time.perf_counter() - t_phase:.1f} s)")
+        # -- the star replay: a fresh service, two workers, one executor.
+        rsvc = eng.JoinQueryService(cp=cp, planner=planner, num_workers=2,
+                                    cache_budget_bytes=2 << 30)
+        rex = tq.PipelineExecutor(service=rsvc, optimizer=opt)
+        rgen = eng.WorkloadGenerator(QP_REPLAY_BASE, seed=29, device=dev)
+        stars = [rgen.star() for _ in range(QP_REPLAY_N)]
+        t0 = time.perf_counter()
+        refs = [star_oracle(s) for s in stars]
+        # The lookup oracle against the reference's own on the smallest.
+        small = min(range(len(stars)), key=lambda i: stars[i].tables["F"].size)
+        want = tq.reference_execute(stars[small])
+        assert np.array_equal(refs[small][0], want[0]) and \
+            refs[small][1] == want[1]
+        log(f"  replay facts {[s.tables['F'].size for s in stars]}: oracles "
+            f"{time.perf_counter() - t0:.1f} s on the host")
+        replay = {"facts": [s.tables["F"].size for s in stars]}
+        for i, (s, r) in enumerate(zip(stars, refs)):    # cold + verify
+            res, _ = served(f"replay verify {i}", rsvc, rex, s)
+            verify_pipeline(res, r, f"replay star {i}")
+        t0 = time.perf_counter()
+        timed = [served(f"replay {i}", rsvc, rex, s)[1]
+                 for i, s in enumerate(stars)]
+        elapsed = time.perf_counter() - t0
+        st = rsvc.stats()
+        replay.update(pipelines_per_s=len(stars) / elapsed,
+                      elapsed_s=elapsed, cache=st["cache"],
+                      wall_ms=[t["wall_ms"] for t in timed],
+                      host_bytes_moved=st["host_bytes_moved"])
+        assert st["host_bytes_moved"] == 0
+        log(f"  replay: {len(stars)} pipelines in {elapsed:.3f} s, "
+            f"{replay['pipelines_per_s']:.3f} pipelines/s; table hits "
+            f"{st['cache']['hits']} (rate {st['cache']['hit_rate']:.3f}), "
+            f"partition hits {st['cache']['partition_hits']}/"
+            f"{st['cache']['probe_partition_hits']}")
+        out["replay"] = replay
+
+        log(f"  (replay done at {time.perf_counter() - t_phase:.1f} s)")
+        # -- the skewed star, static then adaptive.
+        qs = skewed_star(QP_SKEW_FACT, seed=41)
+        rs = tq.reference_execute(qs)
+        skew = {}
+        for mode in ("static", "adaptive"):
+            aex = tq.PipelineExecutor(service=rsvc, optimizer=opt,
+                                      adaptive=mode == "adaptive")
+            res, rec = served(f"skewed star {mode}", rsvc, aex, qs)
+            verify_pipeline(res, rs, f"skewed star {mode}")
+            rec["order"] = [str(s.join) for s in res.physical.stages]
+            log(f"  skewed star {mode}: order {rec['order']}, replans "
+                f"{res.replans}")
+            skew[mode] = rec
+        out["skewed"] = skew
+        rsvc.close()
+        log(f"  (skewed star done at {time.perf_counter() - t_phase:.1f} s)")
+    finally:
+        qexec._ScanView.col_fp, qexec._match_stats = orig_fp, orig_match
+        svc.close()
+
+    log(f"  query pipeline launches {counts}")
+    for name in ("hash_bucket", "seg_agg"):
+        assert counts.get(name, 0) > 0, f"the pipeline never launched {name}"
+    for name in PARTITION_KERNELS:
+        assert (counts.get(name, 0) > 0) == any(partitioned), (
+            name, counts, any(partitioned))
+    out["launches"] = counts
+    out["sha1_alone"] = sha1_ms(q)
+    out["mechanisms"] = run_paper_mechanisms(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12 took {out['phase_s']:.1f} s")
+    return out
+
+
+def sha1_ms(q) -> dict:
+    """SHA-1 of one 2^24-row int32 key column alone (``col_fp``'s bytes),
+    and NumPy's bytes/s over it."""
+    import hashlib
+    col = q.tables["F"].columns["fk0"]
+    t0 = time.perf_counter()
+    hashlib.sha1(col.tobytes()).hexdigest()
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"  SHA-1 of F.fk0 ({col.nbytes} B): {ms:.3f} ms, "
+        f"{col.nbytes / ms / 1e6:.3f} GB/s")
+    return {"bytes": col.nbytes, "ms": ms}
+
+
+def run_paper_mechanisms(dev) -> dict:
+    """The §3.3 mechanisms at 2^24 on the card: divergence grouping of the
+    p2 key counts of a skewed SHJ probe, the scan allocator against a
+    NumPy oracle, and ``run_map_series`` over ``partition_series(0)``
+    with the C group on the host and a ratio that moves, bit-equal to
+    one-device ``run_series`` over each group's slice."""
+    from repro_torch.core import (alloc_stats, basic_alloc_units,
+                                  build_hash_table, default_num_buckets,
+                                  divergence_order, inverse_permutation,
+                                  partition_series, scan_alloc,
+                                  skewed_relation, tile_divergence_waste)
+    from repro_torch.core import hash_table as ht
+    from repro_torch.core.steps import run_series
+
+    n = QP_MECH_N
+    out: dict = {}
+    # Divergence: the p2 key counts of a 25 %-skewed probe.
+    nb = default_num_buckets(n)
+    table = build_hash_table(skewed_relation(n, s_percent=25, seed=1,
+                                             device=dev), nb)
+    probe = skewed_relation(n, s_percent=25, seed=2, device=dev)
+    _, w = ht.probe_p2(table, ht.probe_p1(probe.key, nb))
+    w_np = w.cpu().numpy().astype(np.int64)
+
+    def waste_np(x):
+        pad = (-x.shape[0]) % 256
+        t = np.pad(x.astype(np.float64), (0, pad)).reshape(-1, 256)
+        return 1.0 - t.sum() / max(t.max(axis=1).sum() * 256, 1e-9)
+
+    before = float(tile_divergence_waste(w, 256))
+    assert abs(before - waste_np(w_np)) <= 1e-5 * max(1.0, before)
+    div = {"waste_before": before, "after": {}}
+    for groups in (8, 64, 512):
+        order = divergence_order(w, groups)
+        g_np = np.minimum(w_np * groups // (max(w_np.max(), 1) + 1),
+                          groups - 1)
+        assert np.array_equal(order.cpu().numpy(),
+                              np.argsort(g_np, kind="stable")), groups
+        inv = inverse_permutation(order)
+        assert torch.equal(order[inv.long()],
+                           torch.arange(n, dtype=torch.int32, device=dev))
+        after = float(tile_divergence_waste(w[order.long()], 256))
+        assert abs(after - waste_np(w_np[order.cpu().numpy()])) <= \
+            1e-5 * max(1.0, after)
+        div["after"][groups] = {
+            "waste": after,
+            "order_ms": cuda_ms(lambda: divergence_order(w, groups))}
+    log(f"  divergence over p2 key counts (n={n}, mean "
+        f"{w_np.mean():.3f}, max {w_np.max()}): waste {before:.4f} before,"
+        f" after {div['after']}")
+    out["divergence"] = div
+
+    # The scan allocator at 2^24 request sizes (alloc_figs' sizes).
+    sizes_np = np.random.default_rng(0).integers(0, 8, n, dtype=np.int32)
+    sizes = torch.from_numpy(sizes_np).to(dev)
+    alloc = {"basic_units": basic_alloc_units(sizes), "blocks": {}}
+    for block in (32, 256, 2048):
+        offs, total = scan_alloc(sizes, tile=256, block_items=block)
+        s = sizes_np.astype(np.int64).reshape(-1, 256)
+        local = np.cumsum(s, axis=1) - s
+        need = s.sum(axis=1)
+        claim = (need + block - 1) // block * block
+        base = np.cumsum(claim) - claim
+        want = (base[:, None] + local).reshape(-1)
+        got = offs.cpu().numpy().astype(np.int64)
+        assert np.array_equal(got, want) and int(total) == claim.sum()
+        ends = got + sizes_np
+        inner = np.arange(1, n) % 256 != 0
+        assert (got[1:][inner] == ends[:-1][inner]).all()
+        assert (got[::256] >= np.r_[0, ends.reshape(-1, 256).max(
+            axis=1)[:-1]]).all()                        # no overlap
+        st = alloc_stats(sizes, tile=256, block_items=block)
+        assert st.global_units == n // 256 < alloc["basic_units"]
+        alloc["blocks"][block] = {
+            "ms": cuda_ms(lambda: scan_alloc(sizes, tile=256,
+                                             block_items=block)),
+            "global_units": st.global_units,
+            "fragmentation": st.fragmentation}
+    log(f"  scan_alloc at n={n}: {alloc}")
+    out["alloc"] = alloc
+
+    # run_map_series: C on the host, G on the card, the ratio moving.
+    rng = np.random.default_rng(7)
+    items = {"rid": torch.from_numpy(rng.permutation(n).astype(np.int32)),
+             "key": torch.from_numpy(rng.integers(0, 2**31 - 1, n)
+                                     .astype(np.int32))}
+    shared = {"shift": 0, "bits": 7}
+    series = partition_series(0)
+    cp = CoProcessor(c_device="cpu", g_device=dev)
+    cp.run_map_series(series, shared, items, QP_MECH_RATIOS)   # warm-up
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    t0 = time.perf_counter()
+    ic, ig, extra, timing = cp.run_map_series(series, shared, items,
+                                              QP_MECH_RATIOS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rk.launch_counts()
+    cut0, cut = cp._cut(n, QP_MECH_RATIOS[0]), cp._cut(n, QP_MECH_RATIOS[-1])
+    for lo, hi, got in ((0, cut, ic), (cut, n, ig)):
+        want, _ = run_series(series, shared,
+                             {k: v[lo:hi] for k, v in items.items()})
+        for k in ("rid", "key"):
+            assert torch.equal(got[k].cpu(), want[k]), (lo, k)
+    _, whole = run_series(series, shared, items)
+    assert torch.equal(extra["part_hist"].cpu(), whole["part_hist"])
+    dev_items = {k: v.to(dev) for k, v in items.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_series(series, shared, dev_items)
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    crossed = 8 * (n - cut0) + timing.transfer_bytes
+    out["map_series"] = {"ratios": list(QP_MECH_RATIOS), "wall_ms":
+                         wall * 1e3, "emulated_bytes": timing.transfer_bytes,
+                         "bytes_crossed": crossed,
+                         "gpu_only_ms": one * 1e3, "launches": launches}
+    log(f"  run_map_series n={n} ratios {QP_MECH_RATIOS}: wall "
+        f"{wall * 1e3:.3f} ms, Timing.transfer_bytes "
+        f"{timing.transfer_bytes} (the boundary moves), bytes across the "
+        f"bus {crossed} (with the initial G slice); one-device run_series "
+        f"on the card {one * 1e3:.3f} ms; launches {launches}; items "
+        f"bit-equal to run_series over each group's slice")
+    assert launches["hash_bucket"] == 1 and launches["radix_hist"] == 1
+    out["launches"] = launches
     return out
 
 
@@ -1500,6 +2048,9 @@ def main() -> int:
     log_phase("[11] main path: the join-query engine")
     engine = run_engine(dev, main_path["wall_ms"])
 
+    log_phase("[12] main path: the multi-join query pipeline")
+    pipeline = run_query_pipeline(dev, engine["planner"])
+
     log_phase("[6] kernel times at the main paths' shapes")
     times = time_kernels(dev, main_path["schedule"])
     other_times = time_group_kernels(dev)
@@ -1517,7 +2068,9 @@ def main() -> int:
                    shj[f"shj GPU_ONLY shared n={N_MAIN}"]["launches"],
                "lm_generate": next(iter(lm["batches"].values()))[
                    "launches"],
-               "engine_service": engine["launches"]}
+               "engine_service": engine["launches"],
+               "query_pipeline": pipeline["launches"],
+               "paper_mechanisms": pipeline["mechanisms"]["launches"]}
     path_of = {"seg_agg": "groupby_gpu_only_partitioned",
                "hash_bucket": "groupby_gpu_only_partitioned",
                "radix_hist": "groupby_gpu_only_partitioned",

@@ -7,6 +7,8 @@
   * radix partitioning               : ``partition``
   * the SHJ / PHJ two-group executor : ``coprocess``
   * cost model, pass planner, calibration
+  * §3.3 mechanisms: scan allocator (``allocator``), skew grouping
+    (``divergence``) and ``CoProcessor.run_map_series``
   * state exchange with the JAX package (NumPy only) : ``interop``
 """
 from .relation import (Relation, uniform_relation, unique_relation,
@@ -27,5 +29,8 @@ from .cost_model import (SeriesCostModel, series_model_from_costs, LinkSpec,
                          ZEROCOPY_LINK)
 from .coprocess import CoProcessor, Timing, DeviceGroup
 from .calibrate import OnlineUnitCosts, calibrated_overrides
+from .allocator import scan_alloc, alloc_stats, basic_alloc_units
+from .divergence import (divergence_order, inverse_permutation,
+                         tile_divergence_waste)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

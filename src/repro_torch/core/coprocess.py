@@ -134,6 +134,8 @@ def _move(obj, device):
         return {k: _move(v, device) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
         return type(obj)(_move(v, device) for v in obj)
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj     # static step state (a pass's shift and bits)
     return obj.to(device)  # Relation, HashTable, JoinResult
 
 
@@ -249,6 +251,83 @@ class CoProcessor:
         dev = self.g.device
         return Relation(torch.cat([p.rid.to(dev) for p in pieces]),
                         torch.cat([p.key.to(dev) for p in pieces]))
+
+    # ------------------------------------------------------------------
+    # Map-series execution with per-step ratios (PL backbone).
+    # ------------------------------------------------------------------
+    def run_map_series(self, series, shared, items, ratios,
+                       timing: Timing | None = None):
+        """Run splittable map steps with per-step ratios.
+
+        Boundary rule (paper Fig. 2): when r_i != r_{i-1}, the slice between
+        the two cut points moves across groups: a real host <-> card copy
+        when the groups are the host and the card, plus the emulated bus
+        delay in discrete mode.  ``Timing.transfer_bytes`` counts the
+        emulated bytes only, as the JAX package does.  Returns
+        ``(items_c, items_g, extra_shared, timing)``: each group's items
+        on its device, and the steps' combined partial outputs on C's.
+        """
+        timing = timing or Timing(tracer=self.tracer)
+        n = next(iter(items.values())).shape[0]
+        shared_c = self.c.put_shared(shared)
+        shared_g = self.g.put_shared(shared)
+        cut = self._cut(n, ratios[0])
+        items_c = self.c.put_items({k: v[:cut] for k, v in items.items()})
+        items_g = self.g.put_items({k: v[cut:] for k, v in items.items()})
+        if self.discrete:
+            moved = sum((math.prod(v.shape[1:]) or 1) * v.element_size()
+                        * (n - cut) for v in items.values())
+            self._bus_delay(moved, timing)
+        extra_shared: dict = {}
+        for i, step in enumerate(series.steps):
+            new_cut = self._cut(n, ratios[i])
+            if new_cut != cut:
+                items_c, items_g, moved = self._move_boundary(
+                    items_c, items_g, cut, new_cut)
+                self._bus_delay(moved, timing)
+                cut = new_cut
+            # G first: its launches return at once, so the card works
+            # while the host runs C's share.
+            out_g, sh_g = self.g.launch(step.apply)(shared_g, items_g)
+            out_c, sh_c = self.c.launch(step.apply)(shared_c, items_c)
+            items_c, items_g = out_c, out_g
+            for k, how in step.combine.items():
+                a, b = sh_c.get(k), sh_g.get(k)
+                if how == "add":
+                    extra_shared[k] = a.to(self.c.device) + \
+                        b.to(self.c.device)
+                elif how == "list":
+                    extra_shared.setdefault(k, []).extend(
+                        (a if isinstance(a, list) else [a]) +
+                        (b if isinstance(b, list) else [b]))
+        return items_c, items_g, extra_shared, timing
+
+    def _move_boundary(self, items_c, items_g, cut, new_cut):
+        """Move the [min(cut,new_cut), max) slice between the groups.
+
+        Only the moving slice crosses devices; the rest of each group's
+        items stays where it is.  Returns the new items and the bytes
+        moved."""
+        if new_cut > cut:            # C takes more: head of G moves to C
+            take = new_cut - cut
+            head = {k: v[:take].to(self.c.device) for k, v in items_g.items()}
+            moved_bytes = sum(v.numel() * v.element_size()
+                              for v in head.values())
+            items_c = self.c.put_items(
+                {k: torch.cat([items_c[k], head[k]]) for k in items_c})
+            items_g = self.g.put_items(
+                {k: v[take:] for k, v in items_g.items()})
+        else:                        # G takes more: tail of C moves to G
+            take = cut - new_cut
+            tail = {k: v[v.shape[0] - take:].to(self.g.device)
+                    for k, v in items_c.items()}
+            moved_bytes = sum(v.numel() * v.element_size()
+                              for v in tail.values())
+            items_g = self.g.put_items(
+                {k: torch.cat([tail[k], items_g[k]]) for k in items_g})
+            items_c = self.c.put_items(
+                {k: v[: v.shape[0] - take] for k, v in items_c.items()})
+        return items_c, items_g, moved_bytes
 
     # ------------------------------------------------------------------
     # SHJ under a scheme.

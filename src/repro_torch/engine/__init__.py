@@ -30,8 +30,8 @@ Counterpart of ``repro.engine`` on the port's ``CoProcessor``: the C
 group on the host CPU, the G group on the card.  ``JoinQueryService()``
 and ``make_workload`` default to the card and raise without one; pass
 ``cp=CoProcessor(c_device="cpu", g_device="cpu")`` and ``device="cpu"``
-to run on the CPU.  The reference's ``star``/``analytic`` scenarios wait
-for the port's query layer.
+to run on the CPU.  ``WorkloadGenerator.star``/``.analytic`` make
+logical multi-join queries for ``repro_torch.queries.PipelineExecutor``.
 """
 from ..obs import (CostAudit, DriftDetector, FlightRecorder,
                    MetricsRegistry, NULL_TRACER, NullTracer,

@@ -12,9 +12,21 @@ sizes, skew, and selectivity — the axes the paper sweeps in §5):
   * ``hot_table``   — fresh probes against a small pool of recurring build
                       relations: the scenario the build-table cache exists
                       for (every repeat skips the build phase).
+  * ``star``        — multi-join traffic: a star-shaped *logical query*
+                      (fresh fact table, dimensions drawn from a recurring
+                      hot pool) for ``repro_torch.queries.PipelineExecutor``
+                      — the engine sees its stages as ordinary join
+                      queries, so dimension reuse hits the build-side
+                      caches.
+  * ``analytic``    — the ops-subsystem mix: star-shaped logical queries
+                      whose edges cycle through semi/anti/outer variants
+                      and whose sink cycles through group-by aggregates
+                      (count/sum/min/max/avg over the fact measure).
 
 ``make_workload`` assembles a weighted mix; ``MIXES`` names the standard
-mixes the benchmarks and tests use.
+mixes the benchmarks and tests use.  ``star`` produces ``queries.Query``
+objects (not ``JoinQuery``), so it is replayed through the query-pipeline
+executor rather than ``stream``.
 
 ``open_loop`` extends the generator into an open-loop traffic simulator:
 queries arrive on a Poisson (or bursty on/off) process, tagged with a
@@ -24,9 +36,8 @@ replays against the service's admission control.
 
 Counterpart of ``repro/engine/workload.py``: the same seed gives the same
 relations bit for bit, made on ``device`` (the card unless the caller
-asks for the CPU).  The reference's ``star`` and ``analytic`` scenarios
-build logical multi-join queries of its query layer, which the port does
-not have yet; no mix in ``MIXES`` uses them.
+asks for the CPU), and the same ``star`` / ``analytic`` queries, whose
+tables are NumPy columns on the host.
 """
 from __future__ import annotations
 
@@ -85,6 +96,18 @@ class WorkloadGenerator:
             for i in range(hot_pool)]
         self._sel_cycle = (0.125, 0.5, 1.0)
         self._sel_i = 0
+        # Star scenario: recurring dimension tables + a short selectivity
+        # cycle (repeats make the per-stage build sides cacheable).
+        self._star_pool: list = []
+        self._star_sels = (None, 0.1, 0.4)
+        self._star_i = 0
+        # Analytic scenario: cycle variants and grouped aggregates so a
+        # replayed stream exercises every operator the ops subsystem adds.
+        self._variant_cycle = (("inner", "semi"), ("inner", "anti"),
+                               ("left_outer", "inner"), ("semi", "inner"))
+        self._agg_cycle = (("count",), ("sum", "F.m"), ("min", "F.m"),
+                           ("max", "F.m"), ("avg", "F.m"))
+        self._analytic_i = 0
         self._qid = 0
 
     # -- scenarios ----------------------------------------------------------
@@ -122,6 +145,69 @@ class WorkloadGenerator:
         keys = zipf_keys(self.rng, ns, b.size, self.zipf_theta)
         return self._query(b, self._probe(keys), "hot_table",
                            max_out=ns + 64)
+
+    def star(self, num_dims: int = 3):
+        """A star-shaped logical ``repro_torch.queries.Query`` (multi-join).
+
+        The fact table is fresh per call; the dimensions come from a
+        recurring pool with a small cycle of filter selectivities, so
+        replaying stars through ``PipelineExecutor`` produces repeated
+        build sides — the cross-operator reuse the caches exist for.
+        """
+        from ..queries import make_star_query
+        self._ensure_star_pool()
+        idx = sorted(self.rng.choice(len(self._star_pool),
+                                     size=min(num_dims,
+                                              len(self._star_pool)),
+                                     replace=False))
+        dims = [self._star_pool[i] for i in idx]
+        sels = [self._star_sels[(self._star_i + k) % len(self._star_sels)]
+                for k in range(len(dims))]
+        self._star_i += 1
+        self._qid += 1
+        return make_star_query(
+            _size(self.rng, 2 * self.base), [d.size for d in dims],
+            selectivities=sels, seed=int(self.rng.integers(1 << 30)),
+            aggregate=("count",), dim_tables=dims)
+
+    def _ensure_star_pool(self):
+        if self._star_pool:
+            return
+        from ..queries import Table
+        rng = np.random.default_rng(int(self.rng.integers(1 << 30)))
+        for i in range(len(self._hot_pool)):
+            n = _size(rng, max(1024, self.base // 2))
+            self._star_pool.append(Table(f"D{i}", {
+                "id": rng.permutation(n).astype(np.int32),
+                "a": rng.integers(0, 1000, size=n, dtype=np.int32)}))
+
+    def analytic(self, num_dims: int = 2):
+        """A star query with join variants and a group-by sink.
+
+        Two dimensions from the recurring pool, edge kinds and the grouped
+        aggregate cycling deterministically; grouped on the fact table's
+        low-cardinality ``g`` attribute so results stay small however the
+        joins land.  Replayed through ``PipelineExecutor`` like ``star``.
+        """
+        from ..queries import make_star_query
+        self._ensure_star_pool()
+        i = self._analytic_i
+        self._analytic_i += 1
+        idx = sorted(self.rng.choice(len(self._star_pool),
+                                     size=min(num_dims,
+                                              len(self._star_pool)),
+                                     replace=False))
+        dims = [self._star_pool[k] for k in idx]
+        kinds = list(self._variant_cycle[i % len(self._variant_cycle)])
+        kinds = (kinds * num_dims)[:len(dims)]
+        sels = [self._star_sels[(i + k) % len(self._star_sels)]
+                for k in range(len(dims))]
+        self._qid += 1
+        return make_star_query(
+            _size(self.rng, 2 * self.base), [d.size for d in dims],
+            selectivities=sels, seed=int(self.rng.integers(1 << 30)),
+            aggregate=self._agg_cycle[i % len(self._agg_cycle)],
+            dim_tables=dims, join_kinds=kinds, group_by=("F.g",))
 
     def _probe(self, keys: np.ndarray) -> Relation:
         """A probe relation of ``keys`` with arange rids, on the device."""

@@ -670,3 +670,124 @@ def test_service_on_card_runs_phj_groupby_and_faults(dev):
         o = svc._run_with_recovery(te.JoinQuery(b, p, query_id=4))
     assert np.array_equal(o.result.valid_pairs(), exp)
     assert [e["what"] for e in svc.metrics.events("recovery")] == ["retry"]
+
+
+def _views(src, seen=None):
+    """Every view reachable from a pipeline result's source view."""
+    from repro_torch.queries.executor import StageView
+    seen = [] if seen is None else seen
+    if any(src is s for s in seen):
+        return seen
+    seen.append(src)
+    if isinstance(src, StageView):
+        _views(src._psrc, seen)
+        _views(src._bsrc, seen)
+    return seen
+
+
+@pytest.mark.parametrize("handoff", ["device", "host"])
+def test_pipeline_on_card_is_exact_and_resident(dev, handoff):
+    """Star and analytic queries at a 2^18 fact table through
+    ``PipelineExecutor`` on the card: exact against ``reference_execute``;
+    every stage relation handed to the service, every ``StageView``'s
+    match vectors and every device column on ``cuda``; on the fused path
+    no intermediate or fingerprint byte crosses to the host; each
+    ``wall_s`` covers the synchronized phases of its stages."""
+    import repro_torch.engine as te
+    import repro_torch.queries as tq
+    from repro_torch.queries.executor import StageView
+
+    cp = tc.CoProcessor(c_device="cpu", g_device=dev)
+    svc = te.JoinQueryService(cp=cp, num_workers=2)
+    handed = []
+    for name in ("execute", "submit"):
+        orig = getattr(svc, name)
+
+        def spy(q, *a, _orig=orig, **kw):
+            handed.append(q)
+            return _orig(q, *a, **kw)
+
+        setattr(svc, name, spy)
+    opt = tq.JoinOrderOptimizer(svc.planner, handoff=handoff)
+    ex = tq.PipelineExecutor(service=svc, optimizer=opt, handoff=handoff)
+    gen = te.WorkloadGenerator(1 << 17, seed=42, device=dev)
+    queries = [tq.make_star_query(1 << 18, [1 << 15] * 3,
+                                  selectivities=[0.02, None, 0.5], seed=17)]
+    queries += [gen.analytic() for _ in range(4)]
+    reset_launch_counts()
+    for q in queries:
+        res = ex.run(q)
+        ref_rows, ref_agg = tq.reference_execute(q)
+        assert res.aggregate == ref_agg
+        assert np.array_equal(res.rows_array(), ref_rows), q.describe()
+        assert res.wall_s >= sum(sum(o.timing.phase_s.values())
+                                 for o in res.outcomes) > 0
+        if handoff == "device":
+            assert res.host_bytes_moved == 0
+            src = res._source
+            if isinstance(src, StageView):
+                for v in _views(src):
+                    if isinstance(v, StageView):
+                        assert v._pr.device.type == "cuda"
+                        assert v._br is None or v._br.device.type == "cuda"
+                        memo = v._col_memo
+                    else:
+                        memo = v._dev_memo
+                    assert all(c.device.type == "cuda"
+                               for c in memo.values())
+    counts = launch_counts()
+    assert counts["hash_bucket"] > 0 and counts["seg_agg"] > 0
+    for q in handed:
+        rels = ((q.build, q.probe) if isinstance(q, te.JoinQuery)
+                else (q.keys,))
+        for r in rels:
+            assert r.rid.device.type == r.key.device.type == "cuda", q.tag
+    by_cause = svc.ledger.by_cause()
+    assert by_cause["fingerprint"] == 0
+    if handoff == "device":
+        assert by_cause["handoff"] == 0
+        assert svc.stats()["host_bytes_moved"] == 0
+    svc.close()
+
+
+def test_run_map_series_on_card_matches_one_device(dev):
+    """``run_map_series`` over ``partition_series(0)`` with the C group on
+    the host and the G group on the card, the ratio moving across n1-n3:
+    each group's items equal one-device ``run_series`` over its slice,
+    the combined histogram the whole relation's, and the boundary moves
+    counted as the JAX package counts them."""
+    from repro_torch.core.steps import run_series
+
+    n = 1 << 18
+    rng = np.random.default_rng(5)
+    items = {"rid": torch.from_numpy(rng.permutation(n).astype(np.int32)),
+             "key": torch.from_numpy(rng.integers(0, 1 << 30, n)
+                                     .astype(np.int32))}
+    shared = {"shift": 0, "bits": 8}
+    series = tc.partition_series(0)
+    for discrete in (False, True):
+        cp = tc.CoProcessor(c_device="cpu", g_device=dev,
+                            discrete=discrete, link=tc.PCIE_LINK)
+        ratios = (0.25, 0.0, 0.5)
+        reset_launch_counts()
+        out_c, out_g, extra, timing = cp.run_map_series(series, shared,
+                                                        items, ratios)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["hash_bucket"] == 1 and counts["radix_hist"] == 1
+        cut = cp._cut(n, ratios[-1])
+        assert out_c["key"].device.type == "cpu"
+        assert out_g["key"].device.type == "cuda"
+        want_c, _ = run_series(series, shared,
+                               {k: v[:cut] for k, v in items.items()})
+        want_g, _ = run_series(series, shared,
+                               {k: v[cut:] for k, v in items.items()})
+        for k in ("rid", "key"):
+            assert torch.equal(out_c[k], want_c[k])
+            assert torch.equal(out_g[k].cpu(), want_g[k])
+        _, whole = run_series(series, shared, items)
+        assert torch.equal(extra["part_hist"], whole["part_hist"])
+        # Two boundary moves of (rid, key, pid), 12 bytes an item.
+        moved = 12 * (cp._cut(n, 0.25) + cut)
+        assert timing.transfer_bytes == moved + (
+            8 * (n - cp._cut(n, 0.25)) if discrete else 0)

@@ -43,7 +43,11 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.engine.resilience", "repro_torch.engine.faults",
             "repro_torch.engine.table_cache", "repro_torch.engine.planner",
             "repro_torch.engine.service",
-            "repro_torch.engine.workload"} <= set(mods)
+            "repro_torch.engine.workload",
+            "repro_torch.core.allocator", "repro_torch.core.divergence",
+            "repro_torch.queries", "repro_torch.queries.plan",
+            "repro_torch.queries.optimize",
+            "repro_torch.queries.executor"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
