@@ -62,6 +62,19 @@ just after, and verifies each against a NumPy oracle:
   ``partition_series(0)`` with the C group on the host and a ratio that
   moves, bit-equal to one-device ``run_series``.
 
+* MoE serving (phase 13): granite_moe_3b at full width and depth (32
+  layers, d_model 1536, 40 experts top-8, bf16, random weights from seed
+  0) through ``ServeEngine.generate`` for both batches of the LM phase,
+  once under ``moe_impl="dense"`` (G 32 a generate, E none) and once
+  under ``"sorted"``, the paper's radix-partition dispatch (E 32 per
+  prefill and per decode step), with the dropped (token, slot) pairs of
+  every layer; in float32 at the drop-free capacity factor (E / k) the
+  decode logits against ``forward_train`` and dense against sorted
+  within 0.06; the MoE layer (dense against sorted, float32, 2e-5), E
+  (bit-exact) and G on the prefill's own activations; and one
+  full-width llama4_maverick_400b unit (``DE``, 2 of its 48 layers)
+  under both engines.
+
 Kernel F (partitioned probe) is held against its plain version first,
 like A-E, on sorted and on permuted rows (K from 1 to 2^20) and on
 ``build_partitioned_table``'s rows of negative build keys, and again at
@@ -82,7 +95,8 @@ loads, per-warp sub-histograms) there too against ``torch.bincount``;
 H (wgmma + TMA) at the Zamba2 prefill shape, with its CUDA-core
 variant's time beside it; E (wide loads, runs merged before the atomic)
 on the uniform pids of the probe join's packing (the record's row) and on
-the clustered pids of the final headers (beside it, under ``per_input``);
+the clustered pids of the final headers and on granite's router pids
+(65,536 and 32 into 40 bins; beside it, under ``per_input``);
 F (a TMA ring, a producer warp, six consumer groups) at the probe join's
 layout.  E and F are also timed in a CUDA graph (``graph_ms``), the
 device's time without the host's per-call work.
@@ -94,7 +108,10 @@ CUDA device, or without the rest of the repository beside it.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -128,7 +145,9 @@ from repro_torch.kernels.probe.ref import (  # noqa: E402
     probe_ref, random_layout)
 from repro_torch.ops import groupby as gb  # noqa: E402
 from repro_torch.ops import join_variants as jv  # noqa: E402
+import repro_torch.core.partition as cpart  # noqa: E402
 import repro_torch.layers.attention as lattn  # noqa: E402
+import repro_torch.layers.moe as lmoe  # noqa: E402
 import repro_torch.layers.ssd as lssd  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
@@ -191,11 +210,14 @@ LM_ARCH = "zamba2_1_2b"     # the one config whose serving runs G and H
 LM_BATCHES = ((4, 2048, 32), (2, 1000, 16))
 LM_REL_LIMIT = 0.06         # tests/test_archs.py:83
 # Kernel G's grid (B, Sq, Sk, H, KV, D, causal): tests/test_kernels.py:92-97,
-# Zamba2's prefill, a Qwen3-8B-shaped GQA case, D = 96 and a ragged length.
+# Zamba2's prefill, a Qwen3-8B-shaped GQA case, D = 96, a ragged length,
+# and the MoE configs' GQA ratios: granite 24 / 8 heads of 64, llama4 40 /
+# 8 of 128.
 GRID_G = ((2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
           (2, 256, 256, 4, 4, 32, True), (1, 256, 256, 8, 2, 64, True),
           (4, 2048, 2048, 32, 32, 64, True), (1, 2048, 2048, 32, 8, 128, True),
-          (1, 1024, 1024, 32, 32, 96, True), (1, 1000, 1000, 8, 2, 64, True))
+          (1, 1024, 1024, 32, 32, 96, True), (1, 1000, 1000, 8, 2, 64, True),
+          (1, 256, 256, 24, 8, 64, True), (1, 256, 256, 40, 8, 128, True))
 # Kernel H's grid (B, NC, Q, H, P, N): tests/test_kernels.py:114-116,
 # Zamba2's prefill, Mamba2-2.7B's state width and a ragged chunk.
 GRID_H = ((2, 3, 64, 4, 32, 16), (1, 2, 128, 8, 64, 64),
@@ -227,6 +249,15 @@ ENGINE_CAL_N = 1 << 20
 FINGERPRINT_NS = (N_DD, N_MAIN)
 ENGINE_KERNELS = ("partition_hist_fused", "radix_scatter", "hash_bucket",
                   "radix_hist", "seg_agg")
+# Phase 13, MoE serving: granite at full width and depth, served with the
+# two batches of LM_BATCHES under each dispatch engine; one full-width
+# unit (DE, 2 layers) of llama4, whose 48 layers do not fit one card.
+MOE_ARCH = "granite_moe_3b"
+MOE_UNIT_ARCH = "llama4_maverick_400b"
+MOE_UNIT_BATCH = (1, 512, 8)
+MOE_ENGINES = ("dense", "sorted")
+MOE_LAYER_REL = 2e-5        # tests/test_layers.py: dense against sorted
+MOE_AUX_REL = 1e-5
 
 
 def log(*a):
@@ -1021,25 +1052,122 @@ def check_lm_kernels(dev) -> dict[str, float]:
     return err
 
 
-class Capture:
-    """Records the inputs of the first call of a layer's kernel wrapper
-    while the prefill runs, and passes every call on unchanged."""
+class Spy:
+    """Calls ``on_call(args, kw, out)`` after every call of
+    ``module.name`` while inside, and passes each call on unchanged."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name = module, name
+    def __init__(self, module, name: str, on_call):
+        self.module, self.name, self.on_call = module, name, on_call
         self.fn = getattr(module, name)
-        self.args = None
 
     def __enter__(self):
         def wrapper(*args, **kw):
-            if self.args is None:
-                self.args = ([a.clone() for a in args], dict(kw))
-            return self.fn(*args, **kw)
+            out = self.fn(*args, **kw)
+            self.on_call(args, kw, out)
+            return out
         setattr(self.module, self.name, wrapper)
         return self
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.fn)
+
+
+class Capture(Spy):
+    """Records the inputs of the first call of a layer's kernel wrapper
+    while the prefill runs (clones of its tensors, and its keywords, in
+    ``args``), and passes every call on unchanged."""
+
+    def __init__(self, module, name: str):
+        super().__init__(module, name, self._first)
+        self.args = None
+
+    def _first(self, args, kw, out):
+        if self.args is None:
+            self.args = ([a.clone() for a in args], dict(kw))
+
+
+@contextlib.contextmanager
+def moe_probe():
+    """While inside, each MoE call's routes (tokens, k) and how many
+    (token, slot) pairs its expert buffers kept (their non-zero rows), as
+    tensors on the card: nothing waits for the device."""
+    rec = {"routes": [], "kept": []}
+    with Spy(lmoe, "_route", lambda a, kw, out: rec["routes"].append(
+            out[0].reshape(-1, out[0].shape[-1]))), \
+            Spy(lmoe, "_experts_ffn", lambda a, kw, out: rec["kept"].append(
+                (a[1] != 0).any(-1).sum())):
+        yield rec
+
+
+def dropped_pairs(rec) -> list[int]:
+    """Per MoE call of a ``moe_probe`` record: (token, slot) pairs routed
+    minus pairs kept, the pairs its capacity dropped."""
+    return [r.numel() - int(k) for r, k in zip(rec["routes"], rec["kept"])]
+
+
+def timed_generate(engine: ServeEngine, prompts: torch.Tensor, new: int,
+                   dev) -> tuple:
+    """One ``engine.generate`` with its logits, timed with CUDA events
+    after a synchronize, with the launch counts (and G's and H's by
+    variant) and the peak device memory of that run alone.  Returns
+    (tokens, logits, info); the tokens are checked for shape, prompt and
+    vocabulary, the logits for finiteness."""
+    cfg = engine.cfg
+    batch, plen = prompts.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rk.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    tokens, logits = engine.generate(prompts, new, return_logits=True)
+    ev[1].record()
+    ev[1].synchronize()
+    info = {"generate_ms": ev[0].elapsed_time(ev[1]),
+            "launches": rk.launch_counts(),
+            "flash_attn_variants": dict(fa.launches_by_variant),
+            "ssd_intra_chunk_variants": dict(kssd.launches_by_variant),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    info["tokens_per_s"] = batch * new / (info["generate_ms"] / 1e3)
+    assert tokens.shape == (batch, plen + new)
+    assert torch.equal(tokens[:, :plen].cpu(), prompts.cpu())
+    assert bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
+    assert bool(torch.isfinite(logits.float()).all())
+    return tokens, logits, info
+
+
+def time_steps(cfg, params, prompts: torch.Tensor, new: int, dev) -> dict:
+    """The prefill step and the ``new - 1`` decode steps of a generate,
+    each timed alone with CUDA events, and the decode steps' launches."""
+    batch, plen = prompts.shape
+    prefill = make_prefill_step(cfg)
+    step = make_decode_step(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    plog, cache = prefill(params, {"tokens": prompts})
+    ev[1].record()
+    cache = grow_cache(cfg, cache, batch, plen + new, dev)
+    tok = torch.argmax(plog, -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    ev[2].record()
+    for n in range(plen, plen + new - 1):
+        tok, _, cache = step(params, cache, tok, n)
+    ev[3].record()
+    ev[3].synchronize()
+    decode_ms = ev[2].elapsed_time(ev[3]) / (new - 1)
+    return {"prefill_ms": ev[0].elapsed_time(ev[1]),
+            "decode_ms_per_step": decode_ms,
+            "decode_tokens_per_s": batch / (decode_ms / 1e3),
+            "decode_launches": rk.launch_counts()}
+
+
+def logits_diff(got: torch.Tensor, ref: torch.Tensor, vocab: int) -> tuple:
+    """max|got - ref| / max|ref| over the real vocabulary (the padding is
+    -1e9 in both), and the share of positions whose argmax agrees."""
+    got, ref = got.float()[..., :vocab], ref.float()[..., :vocab]
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    return rel, agree
 
 
 def run_lm_serving(dev, cfg, batches=LM_BATCHES) -> dict:
@@ -1073,30 +1201,18 @@ def run_lm_serving(dev, cfg, batches=LM_BATCHES) -> dict:
                 engine.generate(prompts, new)
         else:
             engine.generate(prompts, new)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        rk.reset_launch_counts()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        tokens, logits = engine.generate(prompts, new, return_logits=True)
-        ev[1].record()
-        ev[1].synchronize()
-        counts = rk.launch_counts()
-        variants = dict(fa.launches_by_variant)
-        h_variants = dict(kssd.launches_by_variant)
-        gen_ms = ev[0].elapsed_time(ev[1])
-        peak = torch.cuda.max_memory_allocated(dev)
-        log(f"  generate {what}: {gen_ms:.3f} ms, launches {counts}, G by "
-            f"variant {variants}, H by variant {h_variants}, peak {peak} B")
+        tokens, logits, info = timed_generate(engine, prompts, new, dev)
+        counts = info["launches"]
+        variants = info["flash_attn_variants"]
+        h_variants = info["ssd_intra_chunk_variants"]
+        log(f"  generate {what}: {info['generate_ms']:.3f} ms, launches "
+            f"{counts}, G by variant {variants}, H by variant {h_variants}, "
+            f"peak {info['peak_bytes']} B")
         assert counts["flash_attn"] == n_attn, counts
         assert variants["wgmma"] == n_attn, variants   # head_dim 64, bf16
         assert counts["ssd_intra_chunk"] == n_mamba, counts
         assert h_variants["wgmma"] == n_mamba, h_variants   # bf16
         assert sum(counts.values()) == n_attn + n_mamba, counts
-        assert tokens.shape == (batch, plen + new)
-        assert torch.equal(tokens[:, :plen].cpu(), prompts.cpu())
-        assert bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all())
-        assert bool(torch.isfinite(logits.float()).all())
 
         # Decode (plain attention, recurrent SSD) against forward_train
         # (G and H) at every generated position.
@@ -1105,48 +1221,21 @@ def run_lm_serving(dev, cfg, batches=LM_BATCHES) -> dict:
         fwd_counts = rk.launch_counts()
         assert fwd_counts["flash_attn"] == n_attn, fwd_counts
         assert fwd_counts["ssd_intra_chunk"] == n_mamba, fwd_counts
-        ref = full[:, plen - 1:].float()[..., :cfg.vocab_size]
-        got = logits.float()[..., :cfg.vocab_size]
-        rel = float((got - ref).abs().max() / ref.abs().max())
-        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        rel, agree = logits_diff(logits, full[:, plen - 1:], cfg.vocab_size)
         log(f"  decode vs forward_train logits: max|d|/max|logits| "
             f"{rel:.4g} (limit {LM_REL_LIMIT}); argmax agreement {agree}")
         assert rel < LM_REL_LIMIT, (what, rel)
-        del full, ref, got
+        del full
 
-        # The two steps on their own, each timed with CUDA events.
-        prefill = make_prefill_step(cfg)
-        step = make_decode_step(cfg)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        plog, cache = prefill(params, {"tokens": prompts})
-        ev[1].record()
-        cache = grow_cache(cfg, cache, batch, plen + new, dev)
-        tok = torch.argmax(plog, -1).to(torch.int32)[:, None]
-        torch.cuda.synchronize()
-        rk.reset_launch_counts()
-        ev[2].record()
-        for n in range(plen, plen + new - 1):
-            tok, _, cache = step(params, cache, tok, n)
-        ev[3].record()
-        ev[3].synchronize()
-        assert not any(rk.launch_counts().values()), rk.launch_counts()
-        prefill_ms = ev[0].elapsed_time(ev[1])
-        decode_ms = ev[2].elapsed_time(ev[3]) / (new - 1)
-        row = {"batch": batch, "prompt": plen, "new": new,
-               "generate_ms": gen_ms, "prefill_ms": prefill_ms,
-               "decode_ms_per_step": decode_ms,
-               "tokens_per_s": batch * new / (gen_ms / 1e3),
-               "decode_tokens_per_s": batch / (decode_ms / 1e3),
-               "peak_bytes": peak, "rel_logits": rel,
-               "argmax_agreement": agree, "launches": counts,
-               "flash_attn_variants": variants,
-               "ssd_intra_chunk_variants": h_variants}
-        log(f"  {what}: prefill {prefill_ms:.3f} ms, decode "
-            f"{decode_ms:.3f} ms per step, {row['tokens_per_s']:.1f} tok/s "
-            "over generate")
+        steps = time_steps(cfg, params, prompts, new, dev)
+        assert not any(steps["decode_launches"].values()), steps
+        row = {"batch": batch, "prompt": plen, "new": new, **info,
+               **steps, "rel_logits": rel, "argmax_agreement": agree}
+        log(f"  {what}: prefill {row['prefill_ms']:.3f} ms, decode "
+            f"{row['decode_ms_per_step']:.3f} ms per step, "
+            f"{row['tokens_per_s']:.1f} tok/s over generate")
         out["batches"][what] = row
-        del cache, tokens, logits
+        del tokens, logits
 
     # G and H on the prefill's own activations (first attention block,
     # first Mamba2 block of the 4 x 2048 warm-up prefill).
@@ -1165,6 +1254,250 @@ def run_lm_serving(dev, cfg, batches=LM_BATCHES) -> dict:
         f"{tuple(args[0].shape)} err {eh:.3g}")
     out["activation_err"] = {"flash_attn": eg, "ssd_intra_chunk": eh}
     return out
+
+
+def free_card() -> None:
+    """Return the cached blocks of freed tensors to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def init_lm(cfg, dev):
+    """``cfg``'s LM with random weights from seed 0, and its size."""
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    log(f"  {cfg.name} ({cfg.dtype}): {cfg.num_layers} layers, {n} "
+        f"parameters, initialised in {time.perf_counter() - t0:.1f} s")
+    return params, n
+
+
+def routes_differ(a: list, b: list) -> int:
+    """(token, layer) pairs whose k experts differ between two probes."""
+    return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+
+
+def serve_moe(cfg, params, prompts, new: int, dev, *, n_moe: int,
+              n_attn: int, variant: str, full: bool = True) -> dict:
+    """One served batch of an MoE config under ``cfg.moe_impl``: a
+    warm-up ``generate`` probed for routes and dropped pairs, a timed one
+    whose launches are checked (G ``n_attn`` times in ``variant``, E
+    ``n_moe`` times per prefill and per decode step under ``sorted``,
+    none under ``dense``), with ``full`` its decode logits against
+    ``forward_train``, and the two steps timed alone."""
+    batch, plen = prompts.shape
+    sorted_ = cfg.moe_impl == "sorted"
+    engine = ServeEngine(cfg, params, max_seq=plen + new)
+    with moe_probe() as probe:
+        engine.generate(prompts, new)
+    drops = dropped_pairs(probe)
+    assert len(drops) == n_moe * new, len(drops)
+    tokens, logits, info = timed_generate(engine, prompts, new, dev)
+    counts = info["launches"]
+    want_e = n_moe * new if sorted_ else 0
+    assert counts["flash_attn"] == n_attn, counts
+    assert info["flash_attn_variants"][variant] == n_attn, info
+    assert counts["radix_hist"] == want_e, counts
+    assert sum(counts.values()) == n_attn + want_e, counts
+    row = {"batch": batch, "prompt": plen, "new": new, **info,
+           "dropped_pairs_prefill_by_layer": drops[:n_moe],
+           "dropped_pairs_decode": sum(drops[n_moe:])}
+    if full:
+        fwd, aux = tfm.forward_train(params, cfg, tokens[:, :-1])
+        row["rel_logits"], row["argmax_agreement"] = logits_diff(
+            logits, fwd[:, plen - 1:], cfg.vocab_size)
+        row["forward_train_aux"] = float(aux)
+        del fwd
+    steps = time_steps(cfg, params, prompts, new, dev)
+    assert steps["decode_launches"]["radix_hist"] == (
+        n_moe * (new - 1) if sorted_ else 0), steps
+    row.update(steps)
+    log(f"  {cfg.moe_impl} {batch} x {plen} + {new}: generate "
+        f"{row['generate_ms']:.3f} ms ({row['tokens_per_s']:.1f} tok/s), "
+        f"prefill {row['prefill_ms']:.3f} ms, decode "
+        f"{row['decode_ms_per_step']:.3f} ms/step, peak "
+        f"{row['peak_bytes']} B, launches {counts}; dropped pairs per "
+        f"prefill layer {row['dropped_pairs_prefill_by_layer']}, in decode "
+        f"{row['dropped_pairs_decode']}; decode vs forward_train "
+        f"{row.get('rel_logits')} (argmax {row.get('argmax_agreement')})")
+    return {"row": row, "logits": logits, "routes": probe["routes"][:n_moe]}
+
+
+def compare_engines(runs: dict, vocab: int) -> dict:
+    """Dense against sorted: prefill logits and routes."""
+    rel, agree = logits_diff(runs["sorted"]["logits"][:, 0],
+                             runs["dense"]["logits"][:, 0], vocab)
+    out = {"rel_prefill_logits": rel, "argmax_agreement": agree,
+           "routes_differ": routes_differ(runs["dense"]["routes"],
+                                          runs["sorted"]["routes"]),
+           "routes": sum(r.shape[0] for r in runs["dense"]["routes"])}
+    log(f"  dense vs sorted: prefill logits {rel:.4g}, argmax agreement "
+        f"{agree}, {out['routes_differ']} of {out['routes']} (token, "
+        "layer) routes differ")
+    return out
+
+
+def check_moe_layer(cfg, mparams, x) -> dict:
+    """``moe_dense`` against ``moe_sorted`` on a block's own activations,
+    in float32 at the drop-free capacity (E / k)."""
+    m = cfg.moe
+    cfg32 = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    assert "shared" not in mparams
+    p32 = {k: mparams[k].float() for k in ("router", "wi_gate", "wi_up",
+                                           "wo")}
+    x32 = x.float()
+    yd, ad = lmoe.moe_dense(p32, cfg32, x32)
+    ys, as_ = lmoe.moe_sorted(p32, cfg32, x32)
+    rel = float((yd - ys).abs().max() / yd.abs().max())
+    aux_rel = abs(float(ad) - float(as_)) / abs(float(ad))
+    log(f"  moe_dense vs moe_sorted, float32, capacity factor "
+        f"{cfg32.moe.capacity_factor}, x {tuple(x.shape)}: max|d|/max|y| "
+        f"{rel:.3g} (limit {MOE_LAYER_REL}), aux {float(ad):.6g} vs "
+        f"{float(as_):.6g} (rel {aux_rel:.3g}, limit {MOE_AUX_REL})")
+    assert rel <= MOE_LAYER_REL, rel
+    assert aux_rel <= MOE_AUX_REL, aux_rel
+    return {"rel": rel, "aux_rel": aux_rel}
+
+
+def run_moe_serving(dev) -> dict:
+    """Phase 13: granite_moe_3b at full width and depth (bf16, random
+    weights from seed 0) served through ``ServeEngine.generate`` for each
+    batch of LM_BATCHES under both dispatch engines, then in float32 at
+    the drop-free capacity (decode against ``forward_train``, dense
+    against sorted), the MoE layer, E and G on the prefill's own
+    activations, and one full-width llama4_maverick_400b unit (DE)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            m.num_experts, m.top_k, m.d_ff, cfg.dtype) == (
+                32, 1536, 24, 8, 40, 8, 512, "bfloat16"), cfg
+    n = cfg.num_layers
+    params, n_params = init_lm(cfg, dev)
+    out = {"arch": cfg.name, "params": n_params, "served": {},
+           "dense_vs_sorted": {}}
+    prompts_of = {}
+    for bi, (batch, plen, new) in enumerate(LM_BATCHES):
+        rng = np.random.default_rng(bi)
+        prompts = prompts_of[bi] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, plen), dtype=np.int32)).to(dev)
+        what = f"{batch} x {plen} + {new}"
+        runs = {}
+        for impl in MOE_ENGINES:
+            ecfg = dataclasses.replace(cfg, moe_impl=impl)
+            with contextlib.ExitStack() as stack:
+                if bi == 0 and impl == "dense":  # the first E block's input
+                    moe_in = []
+                    stack.enter_context(Spy(lmoe, "moe", lambda a, kw, o: (
+                        moe_in or moe_in.append((a[0], a[2].clone())))))
+                    cg = stack.enter_context(Capture(lattn,
+                                                     "flash_attention"))
+                if bi == 0 and impl == "sorted":  # E's pids, every call
+                    pids = []
+                    stack.enter_context(Spy(
+                        cpart, "radix_hist",
+                        lambda a, kw, o: pids.append(a[0].clone())))
+                runs[impl] = serve_moe(ecfg, params, prompts, new, dev,
+                                       n_moe=n, n_attn=n, variant="wgmma")
+            out["served"][f"{impl} {what}"] = runs[impl]["row"]
+        out["dense_vs_sorted"][what] = compare_engines(runs, cfg.vocab_size)
+        del runs
+
+    # The MoE layer, E and G on the 4 x 2048 prefill's own activations.
+    mparams, x = moe_in[0]
+    out["layer"] = check_moe_layer(cfg, mparams, x)
+    # pids[0]: the probed prefill's first layer; pids[n]: its first
+    # decode step's.
+    assert pids[0].shape == (m.top_k * x.shape[0] * x.shape[1],)
+    assert pids[n].shape == (m.top_k * x.shape[0],)
+    for pid in pids:
+        assert torch.equal(
+            partition_hist.radix_hist(pid, num_parts=m.num_experts),
+            partition_hist.radix_hist_plain(pid, num_parts=m.num_experts))
+    (q, k, v), kw = cg.args
+    eg = close_err(fa.flash_attention(q, k, v, **kw),
+                   fa.flash_attention_plain(q, k, v, **kw), TOL_G[q.dtype],
+                   "G on granite activations")
+    out["activation_err"] = {"flash_attn": eg, "radix_hist": 0}
+    out["router_pids"] = {
+        f"prefill {LM_BATCHES[0][0]} x {LM_BATCHES[0][1]}": pids[0],
+        f"decode step, batch {LM_BATCHES[0][0]}": pids[n]}
+    out["router_parts"] = m.num_experts
+    log(f"  real activations: E bit-exact on {len(pids)} pid vectors "
+        f"({pids[0].numel()} and {pids[n].numel()} pids); G q "
+        f"{tuple(q.shape)} err {eg:.3g}")
+    del params, mparams, x, moe_in, cg
+    free_card()
+
+    # Float32 at the drop-free capacity: the same seed-0 draws, unrounded.
+    cfg32 = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    params, _ = init_lm(cfg32, dev)
+    batch, plen, new = LM_BATCHES[1]
+    runs = {}
+    for impl in MOE_ENGINES:
+        ecfg = dataclasses.replace(cfg32, moe_impl=impl)
+        runs[impl] = serve_moe(ecfg, params, prompts_of[1], new, dev,
+                               n_moe=n, n_attn=n, variant="cuda_cores")
+        row = runs[impl]["row"]
+        assert not any(row["dropped_pairs_prefill_by_layer"]), row
+        assert row["rel_logits"] < LM_REL_LIMIT, row["rel_logits"]
+        out["served"][f"float32 {impl} {batch} x {plen} + {new}"] = row
+    cmp = compare_engines(runs, cfg.vocab_size)
+    assert cmp["rel_prefill_logits"] < LM_REL_LIMIT, cmp
+    out["dense_vs_sorted"][f"float32 {batch} x {plen} + {new}"] = cmp
+    del params, runs
+    free_card()
+
+    # One full-width llama4 unit (DE: a dense layer, then 128 experts
+    # top-1 with a shared expert).
+    cfg4 = dataclasses.replace(get_config(MOE_UNIT_ARCH), num_layers=2)
+    m4 = cfg4.moe
+    assert (cfg4.d_model, cfg4.num_heads, cfg4.num_kv_heads,
+            cfg4.resolved_head_dim, m4.num_experts, m4.top_k, m4.d_ff,
+            m4.shared_d_ff, cfg4.pattern_unit, cfg4.dtype) == (
+                5120, 40, 8, 128, 128, 1, 8192, 8192, "DE", "bfloat16"), cfg4
+    params, n4 = init_lm(cfg4, dev)
+    batch, plen, new = MOE_UNIT_BATCH
+    prompts = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg4.vocab_size, (batch, plen), dtype=np.int32)).to(dev)
+    runs = {}
+    for impl in MOE_ENGINES:
+        ecfg = dataclasses.replace(cfg4, moe_impl=impl)
+        runs[impl] = serve_moe(ecfg, params, prompts, new, dev, n_moe=1,
+                               n_attn=2, variant="wgmma", full=False)
+    out["unit"] = {"arch": cfg4.name, "layers": cfg4.num_layers,
+                   "params": n4,
+                   "served": {k: r["row"] for k, r in runs.items()},
+                   "dense_vs_sorted": compare_engines(runs,
+                                                      cfg4.vocab_size)}
+    del params, runs
+    free_card()
+    return out
+
+
+def time_router_hist(pids: dict, p: int) -> list[dict]:
+    """Phase 6, continued: E at the router's shapes (granite's 65,536
+    prefill pids and 32 decode pids into its 40 experts), back to back
+    and in a CUDA graph, beside its plain version and ``torch.bincount``
+    (which waits for the device to size its output, so no graph)."""
+    rows = []
+    for name, pid in pids.items():
+        n = pid.numel()
+        run = (lambda: partition_hist.radix_hist(pid, num_parts=p))
+        rows.append({
+            "shape": f"n={n}, P={p}, router pids (granite {name})",
+            "ms": cuda_ms(run), "graph_ms": graph_ms(run),
+            "plain_ms": cuda_ms(lambda: partition_hist.radix_hist_plain(
+                pid, num_parts=p)),
+            "library_ms": cuda_ms(lambda: torch.bincount(pid, minlength=p)),
+            "library": f"torch.bincount(minlength={p})",
+            "bound_ms": (4 * n + 4 * p) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"})
+        log(f"  radix_hist router {name}: {rows[-1]}")
+    return rows
 
 
 def library_ssd(x, dt, b, c, a):
@@ -2051,9 +2384,15 @@ def main() -> int:
     log_phase("[12] main path: the multi-join query pipeline")
     pipeline = run_query_pipeline(dev, engine["planner"])
 
+    log_phase(f"[13] main path: MoE serving, {MOE_ARCH} at full width, "
+              "dense and sorted dispatch")
+    moe = run_moe_serving(dev)
+
     log_phase("[6] kernel times at the main paths' shapes")
     times = time_kernels(dev, main_path["schedule"])
     other_times = time_group_kernels(dev)
+    other_times["radix_hist"]["per_input"] += time_router_hist(
+        moe["router_pids"], moe["router_parts"])
     other_times.update(time_probe_kernel(dev))
     other_times.update(time_lm_kernels(dev))
 
@@ -2070,7 +2409,11 @@ def main() -> int:
                    "launches"],
                "engine_service": engine["launches"],
                "query_pipeline": pipeline["launches"],
-               "paper_mechanisms": pipeline["mechanisms"]["launches"]}
+               "paper_mechanisms": pipeline["mechanisms"]["launches"],
+               **{f"moe_generate_{impl}": moe["served"][
+                   f"{impl} {LM_BATCHES[0][0]} x {LM_BATCHES[0][1]} + "
+                   f"{LM_BATCHES[0][2]}"]["launches"]
+                  for impl in MOE_ENGINES}}
     path_of = {"seg_agg": "groupby_gpu_only_partitioned",
                "hash_bucket": "groupby_gpu_only_partitioned",
                "radix_hist": "groupby_gpu_only_partitioned",
@@ -2103,6 +2446,16 @@ def main() -> int:
             f"{b['prefill_ms']:.3f} ms, decode {b['decode_ms_per_step']:.3f}"
             f" ms/step, {b['tokens_per_s']:.1f} tok/s, peak "
             f"{b['peak_bytes'] / 2**30:.2f} GiB")
+    for what, r in moe["served"].items():
+        log(f"  MoE {what}: generate {r['generate_ms']:.3f} ms, prefill "
+            f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms_per_step']:.3f}"
+            f" ms/step, {r['tokens_per_s']:.1f} tok/s, peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    for what, r in moe["unit"]["served"].items():
+        log(f"  MoE unit {moe['unit']['arch']} x 2 layers {what}: generate "
+            f"{r['generate_ms']:.3f} ms, prefill {r['prefill_ms']:.3f} ms, "
+            f"decode {r['decode_ms_per_step']:.3f} ms/step, peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB")
     log(f"  whole script {time.perf_counter() - T_START:.1f} s")
     log(smi)
     print(json.dumps({"kernels": record}))

@@ -1,4 +1,4 @@
-"""Decoder-LM assembly for the ``D`` / ``A`` / ``M`` block types.
+"""Decoder-LM assembly for the ``D`` / ``A`` / ``M`` / ``E`` block types.
 
 Counterpart of ``repro/models/transformer.py``.  The JAX package scans
 over stacked pattern units; the port keeps one module per unit in a
@@ -12,8 +12,8 @@ Three entry modes, all forward only (no autograd):
   * ``prefill``       -- same math, also returns the serving cache
   * ``decode_step``   -- one token against the cache (KV / SSM state)
 
-MoE blocks (``E``) and encoder-decoder configs are not ported yet
-(ROADMAP A11): they raise ``NotImplementedError``.
+Encoder-decoder configs are not ported yet (ROADMAP A2): they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,12 +22,13 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..layers import attention as attn
+from ..layers import moe as moe_lib
 from ..layers import ssd
 from ..layers.core import (embed, embed_specs, logits_fn, mlp, mlp_specs,
                            rmsnorm, rmsnorm_spec)
 from .params import ParamSpec, materialize, torch_dtype
 
-PORTED_BLOCKS = "DAM"
+PORTED_BLOCKS = "DAME"
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -35,8 +36,8 @@ def check_supported(cfg: ModelConfig) -> None:
     chars = set(cfg.pattern_unit + cfg.tail)
     if cfg.is_enc_dec or not chars <= set(PORTED_BLOCKS):
         raise NotImplementedError(
-            f"{cfg.name}: MoE (E) blocks and encoder-decoder configs are not "
-            "ported to repro_torch yet (ROADMAP A11)")
+            f"{cfg.name}: encoder-decoder configs are not ported to "
+            "repro_torch yet (ROADMAP A2)")
 
 
 # --------------------------------------------------------------------------
@@ -46,9 +47,13 @@ def check_supported(cfg: ModelConfig) -> None:
 def block_specs(cfg: ModelConfig, char: str) -> dict:
     if char == "M":
         return {"ln": rmsnorm_spec(cfg.d_model), "mamba": ssd.ssd_specs(cfg)}
-    return {"ln1": rmsnorm_spec(cfg.d_model), "attn": attn.attn_specs(cfg),
-            "ln2": rmsnorm_spec(cfg.d_model),
-            "mlp": mlp_specs(cfg.d_model, cfg.d_ff)}
+    out = {"ln1": rmsnorm_spec(cfg.d_model), "attn": attn.attn_specs(cfg),
+           "ln2": rmsnorm_spec(cfg.d_model)}
+    if char == "E":
+        out["moe"] = moe_lib.moe_specs(cfg)
+    else:
+        out["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff)
+    return out
 
 
 def _stack(spec_tree: dict, n: int) -> dict:
@@ -105,7 +110,8 @@ class Params(nn.Module):
 
 
 class Block(Params):
-    """One block: ``M`` (Mamba2), or ``D`` / ``A`` (attention + MLP)."""
+    """One block: ``M`` (Mamba2), ``D`` / ``A`` (attention + MLP) or
+    ``E`` (attention + MoE)."""
 
     def __init__(self, char: str, tree: dict):
         super().__init__(tree)
@@ -214,7 +220,8 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
 
 def _block_fwd(char: str, params, cfg: ModelConfig, h: torch.Tensor,
                positions, mode: str, cache: dict | None, cache_len):
-    """One block.  Returns (h, new_cache)."""
+    """One block.  Returns (h, new_cache, aux): aux is the MoE
+    load-balance loss of an ``E`` block, 0.0 for the others."""
     if char == "M":
         state = None
         if mode == "decode":
@@ -222,10 +229,7 @@ def _block_fwd(char: str, params, cfg: ModelConfig, h: torch.Tensor,
                                            "conv_c")}
         x = rmsnorm(h, params["ln"], cfg.rms_eps)
         y, st = ssd.mamba_block(params["mamba"], cfg, x, state)
-        return h + y, st
-    if char not in "DA":
-        raise NotImplementedError(f"block {char!r} is not ported to "
-                                  "repro_torch yet (ROADMAP A11)")
+        return h + y, st, 0.0
     x = rmsnorm(h, params["ln1"], cfg.rms_eps)
     new_cache: dict = {}
     if mode == "decode":
@@ -240,7 +244,10 @@ def _block_fwd(char: str, params, cfg: ModelConfig, h: torch.Tensor,
             new_cache = {"k": k_c, "v": v_c}
     h = h + y
     x2 = rmsnorm(h, params["ln2"], cfg.rms_eps)
-    return h + mlp(params["mlp"], x2), new_cache
+    if char == "E":
+        y2, aux = moe_lib.moe(params["moe"], cfg, x2)
+        return h + y2, new_cache, aux
+    return h + mlp(params["mlp"], x2), new_cache, 0.0
 
 
 # --------------------------------------------------------------------------
@@ -249,29 +256,34 @@ def _block_fwd(char: str, params, cfg: ModelConfig, h: torch.Tensor,
 
 def _run_stack(params: LM, cfg: ModelConfig, h, positions, mode: str,
                cache, cache_len, want_cache: bool):
-    """Every unit in order, then the tail.  Returns (h, new_cache)."""
+    """Every unit in order, then the tail.  Returns (h, aux, new_cache):
+    aux sums the blocks' MoE losses (a float32 tensor, or 0.0 where no
+    block is ``E``: a Python float adds no launch per block)."""
+    aux = 0.0
     new_units = []
     for i, unit in enumerate(params.unit):
         unit_cache = cache["unit"][i] if cache is not None else None
         new_unit = {}
         for j, c in enumerate(cfg.pattern_unit):
             key = f"{j}{c}"
-            h, new_unit[key] = unit[key](
+            h, new_unit[key], a = unit[key](
                 cfg, h, positions, mode,
                 unit_cache[key] if unit_cache is not None else None,
                 cache_len)
+            aux = aux + a
         new_units.append(new_unit)
     new_cache = {"unit": new_units} if want_cache else {}
     if cfg.tail:
         new_tail = {}
         for key, blk in params.tail.items():
-            h, new_tail[key] = blk(
+            h, new_tail[key], a = blk(
                 cfg, h, positions, mode,
                 cache["tail"][key] if cache is not None else None,
                 cache_len)
+            aux = aux + a
         if want_cache:
             new_cache["tail"] = new_tail
-    return h, new_cache
+    return h, aux, new_cache
 
 
 def _positions(b: int, s: int, device, start: int = 0) -> torch.Tensor:
@@ -284,9 +296,9 @@ def forward_hidden(params: LM, cfg: ModelConfig, tokens: torch.Tensor):
     """tokens: (B, S) -> (final hidden states (B, S, d), aux_loss)."""
     b, s = tokens.shape
     h = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
-    h, _ = _run_stack(params, cfg, h, _positions(b, s, tokens.device),
-                      "train", None, None, want_cache=False)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    h, aux, _ = _run_stack(params, cfg, h, _positions(b, s, tokens.device),
+                           "train", None, None, want_cache=False)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=tokens.device)
     return rmsnorm(h, params["final_norm"], cfg.rms_eps), aux
 
 
@@ -302,8 +314,9 @@ def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor):
     """Returns (last-position logits (B, V), cache)."""
     b, s = tokens.shape
     h = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
-    h, cache = _run_stack(params, cfg, h, _positions(b, s, tokens.device),
-                          "prefill", None, None, want_cache=True)
+    h, _, cache = _run_stack(params, cfg, h,
+                             _positions(b, s, tokens.device), "prefill",
+                             None, None, want_cache=True)
     h = rmsnorm(h[:, -1:], params["final_norm"], cfg.rms_eps)
     return logits_fn(params["embed"], h, cfg.vocab_size)[:, 0], cache
 
@@ -316,8 +329,8 @@ def decode_step(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     new_cache)."""
     b, _ = tokens.shape
     h = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
-    h, new_cache = _run_stack(params, cfg, h,
-                              _positions(b, 1, tokens.device, cache_len),
-                              "decode", cache, cache_len, want_cache=True)
+    h, _, new_cache = _run_stack(params, cfg, h,
+                                 _positions(b, 1, tokens.device, cache_len),
+                                 "decode", cache, cache_len, want_cache=True)
     h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
     return logits_fn(params["embed"], h, cfg.vocab_size)[:, 0], new_cache

@@ -1,10 +1,13 @@
 """The port's Hopper kernels and main path on a CUDA card, against their
 plain versions and the CPU path, bit for bit.  Skips without a card; on
 one, run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+import repro_torch.configs as tconfigs
 import repro_torch.core as tc
 import repro_torch.ops as tops  # (attaches CoProcessor.groupby)
 from repro_torch.core import interop
@@ -19,6 +22,8 @@ from repro_torch.kernels.partition_hist.ref import clustered_pids
 from repro_torch.kernels.probe.ref import random_layout
 from repro_torch.kernels.flash_attn import flash_attn as fa
 from repro_torch.kernels.ssd import ssd as kssd
+from repro_torch.layers import moe as tmoe
+from repro_torch.models import params as tparams
 
 pytestmark = pytest.mark.cuda
 
@@ -356,7 +361,8 @@ def _close(got, want, tol):
 GRID_G = [(2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
           (2, 256, 256, 4, 4, 32, True), (1, 256, 256, 8, 2, 64, True),
           (1, 1000, 1000, 4, 2, 96, True), (2, 37, 37, 4, 4, 16, True),
-          (1, 100, 260, 8, 2, 128, False), (1, 1, 1, 2, 1, 64, True)]
+          (1, 100, 260, 8, 2, 128, False), (1, 1, 1, 2, 1, 64, True),
+          (1, 256, 256, 24, 8, 64, True), (1, 256, 256, 40, 8, 128, True)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
@@ -791,3 +797,45 @@ def test_run_map_series_on_card_matches_one_device(dev):
         moved = 12 * (cp._cut(n, 0.25) + cut)
         assert timing.transfer_bytes == moved + (
             8 * (n - cp._cut(n, 0.25)) if discrete else 0)
+
+
+@pytest.mark.parametrize("impl", ["dense", "sorted"])
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_moe_sorted_on_card_matches_cpu(dev, monkeypatch, impl,
+                                        capacity_factor):
+    """A reduced granite E block in float32: the card's engine (``sorted``
+    launches E once) against the CPU port, routes, expert buffers (which
+    pairs each expert kept, in which slot) and output to 2e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.reduced(tconfigs.get_config("granite_moe_3b"))
+    cfg = dataclasses.replace(cfg, dtype="float32", moe_impl=impl,
+                              moe=dataclasses.replace(
+                                  cfg.moe, capacity_factor=capacity_factor))
+    params = tparams.materialize(tmoe.moe_specs(cfg),
+                                 torch.Generator().manual_seed(3),
+                                 torch.float32)
+    x = torch.randn(4, 96, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4))
+
+    def run(device):
+        seen = []
+        route, ffn = tmoe._route, tmoe._experts_ffn
+        monkeypatch.setattr(tmoe, "_route", lambda *a: seen.append(
+            route(*a)) or seen[-1])
+        monkeypatch.setattr(tmoe, "_experts_ffn", lambda p, e: seen.append(
+            e) or ffn(p, e))
+        p = {k: v.to(device) for k, v in params.items()}
+        y, aux = tmoe.moe(p, cfg, x.to(device))
+        monkeypatch.setattr(tmoe, "_route", route)
+        monkeypatch.setattr(tmoe, "_experts_ffn", ffn)
+        (idx, w, probs), buf = seen
+        return [t.cpu() for t in (y, aux, idx, w, probs, buf)]
+
+    reset_launch_counts()
+    got = run(dev)
+    assert launch_counts()["radix_hist"] == (impl == "sorted")
+    want = run("cpu")
+    assert torch.equal(got[2], want[2])                     # routes
+    assert torch.equal(got[5] != 0, want[5] != 0)           # kept slots
+    for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        assert torch.allclose(g, w, rtol=2e-5, atol=2e-5)

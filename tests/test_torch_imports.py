@@ -31,7 +31,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.configs.base", "repro_torch.configs.zamba2_1_2b",
             "repro_torch.models.params", "repro_torch.models.transformer",
             "repro_torch.layers.core", "repro_torch.layers.attention",
-            "repro_torch.layers.ssd",
+            "repro_torch.layers.ssd", "repro_torch.layers.moe",
             "repro_torch.kernels.flash_attn.flash_attn",
             "repro_torch.kernels.ssd.ssd", "repro_torch.serve.engine",
             "repro_torch.launch.serve",

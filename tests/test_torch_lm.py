@@ -272,7 +272,8 @@ def test_bf16_prefill_within_archs_limit():
 
 @pytest.mark.parametrize("arch", ["zamba2_1_2b", "mamba2_2_7b", "qwen3_8b",
                                   "qwen2_5_14b", "phi3_mini_3_8b",
-                                  "chameleon_34b"])
+                                  "chameleon_34b", "granite_moe_3b",
+                                  "llama4_maverick_400b"])
 def test_param_and_cache_specs_match_jax_at_full_size(arch):
     """Same names, shapes and dtypes as the JAX specs, without
     allocating: the full-size model and a serving cache."""
@@ -308,13 +309,25 @@ def test_full_size_zamba2_counts():
     assert 1.28e9 < n < 1.30e9
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_3b", "llama4_maverick_400b",
-                                  "whisper_large_v3"])
+def test_full_size_granite_counts():
+    cfg = tconfigs.get_config("granite_moe_3b")
+    assert (cfg.num_layers, cfg.d_model, cfg.moe.num_experts,
+            cfg.moe.top_k, cfg.moe.d_ff) == (32, 1536, 40, 8, 512)
+    specs = ttfm.param_specs(cfg)
+    n = sum(np.prod(s.shape) for _, s in tparams.leaves(specs))
+    # param_count leaves out the norm weights: ln1 and ln2 of each E
+    # block, and the final norm.
+    assert n == cfg.param_count() + 32 * 2 * cfg.d_model + cfg.d_model
+    assert 3.2e9 < n < 3.4e9
+    assert specs["unit"]["0E"]["moe"]["wi_gate"].shape == (32, 40, 1536, 512)
+
+
+@pytest.mark.parametrize("arch", ["whisper_large_v3"])
 def test_moe_and_encoder_configs_raise(arch):
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A2"):
         ttfm.param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A2"):
         ttfm.init_params(cfg, torch.Generator().manual_seed(0))
 
 

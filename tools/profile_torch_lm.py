@@ -2,8 +2,10 @@
 
     python3 tools/profile_torch_lm.py [--arch zamba2_1_2b] [--batch 4]
         [--prompt-len 2048] [--steps 8] [--trace-dir reports/torch]
+        [--moe-impl dense|sorted]
 
-Builds the config at full width (random weights, seed 0), warms up with
+Builds the config at full width (random weights, seed 0; an MoE config
+under ``--moe-impl``, by default its own dispatch engine), warms up with
 one ``ServeEngine.generate``, then traces with ``torch.profiler``:
 
 * one prefill (``make_prefill_step``) of ``batch`` x ``prompt-len``
@@ -21,6 +23,7 @@ Prints the card's name and power limit first.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -82,6 +85,7 @@ def main() -> int:
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--trace-dir", default="reports/torch")
+    ap.add_argument("--moe-impl", choices=("dense", "sorted"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_lm: no CUDA device", file=sys.stderr)
@@ -92,12 +96,15 @@ def main() -> int:
     print(smi.stdout.strip())
     dev = torch.device("cuda:0")
     cfg = get_config(args.arch)
+    if args.moe_impl:
+        cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
     params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     b, p, steps = args.batch, args.prompt_len, args.steps
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, p), dtype=np.int32)).to(dev)
     ServeEngine(cfg, params, max_seq=p + steps + 1).generate(prompts, 4)
-    print(f"{cfg.name}: batch {b}, prompt {p}, {steps} decode steps")
+    print(f"{cfg.name} ({cfg.moe_impl if cfg.moe else 'no MoE'}): batch "
+          f"{b}, prompt {p}, {steps} decode steps")
     prefill, step = make_prefill_step(cfg), make_decode_step(cfg)
     held = {}
 
