@@ -75,6 +75,18 @@ just after, and verifies each against a NumPy oracle:
   full-width llama4_maverick_400b unit (``DE``, 2 of its 48 layers)
   under both engines.
 
+* encoder-decoder serving (phase 14): whisper_large_v3 at full width and
+  depth (32 encoder and 32 decoder layers, d_model 1280, 20 heads of 64,
+  1500 stub frames drawn as the serve CLI draws them, bf16, random
+  weights from seed 0) through ``ServeEngine.generate`` for 8 clips x 4
+  prompt tokens + 32 new and 4 x 224 + 16: 96 G launches a generate, 32
+  each in the encoder (non-causal over 1500 frames), the decoder's
+  self-attention and its cross attention, all ``wgmma``, none in decode;
+  the grown cache's ``ck`` / ``cv`` are the prefill's own tensors; decode
+  within 0.06 of ``forward_train`` in bf16 and in float32 (2 x 224 + 16,
+  G's ``cuda_cores``); G on the first encoder block's and the first cross
+  attention's activations.
+
 Kernel F (partitioned probe) is held against its plain version first,
 like A-E, on sorted and on permuted rows (K from 1 to 2^20) and on
 ``build_partitioned_table``'s rows of negative build keys, and again at
@@ -88,8 +100,9 @@ tensor-core variant must all serve.  Then the script times each kernel at the ma
 beside its bound, its plain version and one PyTorch library call (or a
 composite of them), with CUDA events around launches enqueued back to
 back.  G (wgmma + TMA at head_dim 64 and 128) is timed at the Zamba2
-shape and at a Qwen3-8B-shaped GQA shape against SDPA, with the variant
-that served it; B (the shared-memory tile reorder) at both passes of the
+shape, at a Qwen3-8B-shaped GQA shape and non-causal at whisper's
+encoder and cross attention shapes against SDPA, with the variant that
+served it; B (the shared-memory tile reorder) at both passes of the
 join's (7, 6) schedule against a stable sort and two gathers; A (wide
 loads, per-warp sub-histograms) there too against ``torch.bincount``;
 H (wgmma + TMA) at the Zamba2 prefill shape, with its CUDA-core
@@ -153,6 +166,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
 from repro_torch.kernels.ssd import ssd as kssd  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.params import torch_dtype  # noqa: E402
 from repro_torch.obs.timing import cuda_ms, graph_ms  # noqa: E402
 from repro_torch.serve.engine import (ServeEngine,  # noqa: E402
                                       grow_cache, make_decode_step,
@@ -211,19 +225,34 @@ LM_BATCHES = ((4, 2048, 32), (2, 1000, 16))
 LM_REL_LIMIT = 0.06         # tests/test_archs.py:83
 # Kernel G's grid (B, Sq, Sk, H, KV, D, causal): tests/test_kernels.py:92-97,
 # Zamba2's prefill, a Qwen3-8B-shaped GQA case, D = 96, a ragged length,
-# and the MoE configs' GQA ratios: granite 24 / 8 heads of 64, llama4 40 /
-# 8 of 128.
+# the MoE configs' GQA ratios: granite 24 / 8 heads of 64, llama4 40 /
+# 8 of 128, and whisper_large_v3's 20 / 20 heads of 64 non-causal at its
+# 1500 encoder frames (the encoder; cross attention of 224, 4 and 1
+# queries) and causal at a 4-token prompt (the decoder's own prefill).
 GRID_G = ((2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
           (2, 256, 256, 4, 4, 32, True), (1, 256, 256, 8, 2, 64, True),
           (4, 2048, 2048, 32, 32, 64, True), (1, 2048, 2048, 32, 8, 128, True),
           (1, 1024, 1024, 32, 32, 96, True), (1, 1000, 1000, 8, 2, 64, True),
-          (1, 256, 256, 24, 8, 64, True), (1, 256, 256, 40, 8, 128, True))
+          (1, 256, 256, 24, 8, 64, True), (1, 256, 256, 40, 8, 128, True),
+          (2, 1500, 1500, 20, 20, 64, False), (2, 224, 1500, 20, 20, 64, False),
+          (8, 4, 1500, 20, 20, 64, False), (1, 1, 1500, 20, 20, 64, False),
+          (8, 4, 4, 20, 20, 64, True), (1, 1500, 1500, 20, 20, 64, False))
 # Kernel H's grid (B, NC, Q, H, P, N): tests/test_kernels.py:114-116,
 # Zamba2's prefill, Mamba2-2.7B's state width and a ragged chunk.
 GRID_H = ((2, 3, 64, 4, 32, 16), (1, 2, 128, 8, 64, 64),
           (1, 2, 128, 4, 64, 128), (4, 8, 256, 64, 64, 64),
           (1, 4, 256, 80, 64, 128), (2, 1, 37, 64, 64, 64))
 TOL_G = {torch.float32: 3e-5, torch.bfloat16: 2e-2}   # test_kernels.py:109
+# G's error beside the size of what it computes: RMS(got - want) over
+# RMS(want), asserted besides TOL_G.  TOL_G's bfloat16 limit is a fixed
+# 2e-2, more than whole outputs where attention averages many keys
+# (whisper's 1500 frames give outputs of about 0.006, N(0, 1) inputs
+# about 0.04); this one scales with them, so a key tile dropped, doubled
+# or diluted with zeros shows: 28 zero keys among 1500 move near-uniform
+# outputs by 1.8 %.  Rounding to bfloat16 (2^-9 relative) bounds what a
+# right kernel reaches.
+REL_G = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+ENCDEC_F32_REL_LIMIT = 1e-4  # decode vs forward_train, whisper in float32
 TOL_H = {torch.float32: 2e-4, torch.bfloat16: 3e-2}   # test_kernels.py:128
 PROBE_BITS = 13             # the planner's (7, 6) schedule at 2^24
 # (P, K, M) of kernel F's check, each on sorted and on permuted rows:
@@ -258,6 +287,15 @@ MOE_UNIT_BATCH = (1, 512, 8)
 MOE_ENGINES = ("dense", "sorted")
 MOE_LAYER_REL = 2e-5        # tests/test_layers.py: dense against sorted
 MOE_AUX_REL = 1e-5
+# Phase 14, encoder-decoder serving: whisper at full width and depth, both
+# runs inside its 448-token decoder context: transcription from the
+# start-of-transcript tokens (8 clips x 4 prompt tokens + 32 new), and
+# long-form transcription conditioned on the previous window's text (4 x
+# 224 + 16: Whisper caps that prompt near half its context); float32 at 2
+# clips of the long-form shape.
+ENCDEC_ARCH = "whisper_large_v3"
+ENCDEC_BATCHES = ((8, 4, 32), (4, 224, 16))
+ENCDEC_F32_BATCH = (2, 224, 16)
 
 
 def log(*a):
@@ -989,6 +1027,21 @@ def close_err(got: torch.Tensor, want: torch.Tensor, tol: float,
     return float(diff.max())
 
 
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    """RMS(got - want) / RMS(want), in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def g_close(got: torch.Tensor, want: torch.Tensor, what) -> dict:
+    """G's output against its plain version: within TOL_G elementwise and
+    within REL_G of want's RMS.  Returns both readings."""
+    err = close_err(got, want, TOL_G[want.dtype], what)
+    rel = rel_rms(got, want)
+    assert rel <= REL_G[want.dtype], (what, rel, REL_G[want.dtype])
+    return {"max_abs_err": err, "rel_rms": rel}
+
+
 def g_inputs(shape, dtype, dev, seed: int):
     b, sq, sk, h, kv, d, _ = shape
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1022,9 +1075,11 @@ def check_lm_kernels(dev) -> dict[str, float]:
             got = fa.flash_attention(q, k, v, num_kv_heads=kv, causal=causal)
             want = fa.flash_attention_plain(q, k, v, num_kv_heads=kv,
                                             causal=causal)
-            e = close_err(got, want, tol, ("flash_attn", shape, dtype))
-            err["flash_attn"] = max(err["flash_attn"], e)
-            log(f"  G {shape} {dtype}: max abs err {e:.3g} (tol {tol})")
+            e = g_close(got, want, ("flash_attn", shape, dtype))
+            err["flash_attn"] = max(err["flash_attn"], e["max_abs_err"])
+            log(f"  G {shape} {dtype}: max abs err {e['max_abs_err']:.3g} "
+                f"(tol {tol}), rel RMS {e['rel_rms']:.3g} "
+                f"(limit {REL_G[dtype]})")
             del q, k, v, got, want
     by_variant = {}
     for dtype, variant in ((torch.bfloat16, None),
@@ -1053,15 +1108,22 @@ def check_lm_kernels(dev) -> dict[str, float]:
 
 
 class Spy:
-    """Calls ``on_call(args, kw, out)`` after every call of
-    ``module.name`` while inside, and passes each call on unchanged."""
+    """Calls ``enter(args, kw)`` before and ``on_call(args, kw, out)``
+    after every call of ``module.name`` while inside, and passes each call
+    on unchanged."""
 
     def __init__(self, module, name: str, on_call):
         self.module, self.name, self.on_call = module, name, on_call
-        self.fn = getattr(module, name)
+
+    def enter(self, args, kw) -> None:
+        pass
 
     def __enter__(self):
+        # Read on entry, so that spies on one function nest.
+        self.fn = getattr(self.module, self.name)
+
         def wrapper(*args, **kw):
+            self.enter(args, kw)
             out = self.fn(*args, **kw)
             self.on_call(args, kw, out)
             return out
@@ -1073,9 +1135,9 @@ class Spy:
 
 
 class Capture(Spy):
-    """Records the inputs of the first call of a layer's kernel wrapper
-    while the prefill runs (clones of its tensors, and its keywords, in
-    ``args``), and passes every call on unchanged."""
+    """Records the inputs of the first call of ``module.name`` while the
+    prefill runs (clones of its tensors, its other arguments as they are,
+    and its keywords, in ``args``), and passes every call on unchanged."""
 
     def __init__(self, module, name: str):
         super().__init__(module, name, self._first)
@@ -1083,7 +1145,23 @@ class Capture(Spy):
 
     def _first(self, args, kw, out):
         if self.args is None:
-            self.args = ([a.clone() for a in args], dict(kw))
+            self.args = ([a.clone() if torch.is_tensor(a) else a
+                          for a in args], dict(kw))
+
+
+class GLaunches(Spy):
+    """Adds kernel G's launches made inside each call of ``module.name``
+    to ``counts[key(kw)]``."""
+
+    def __init__(self, module, name: str, counts: dict, key):
+        super().__init__(module, name, self._count)
+        self.counts, self.key = counts, key
+
+    def enter(self, args, kw) -> None:
+        self.before = fa.launches
+
+    def _count(self, args, kw, out):
+        self.counts[self.key(kw)] += fa.launches - self.before
 
 
 @contextlib.contextmanager
@@ -1106,12 +1184,13 @@ def dropped_pairs(rec) -> list[int]:
 
 
 def timed_generate(engine: ServeEngine, prompts: torch.Tensor, new: int,
-                   dev) -> tuple:
-    """One ``engine.generate`` with its logits, timed with CUDA events
-    after a synchronize, with the launch counts (and G's and H's by
-    variant) and the peak device memory of that run alone.  Returns
-    (tokens, logits, info); the tokens are checked for shape, prompt and
-    vocabulary, the logits for finiteness."""
+                   dev, frames=None) -> tuple:
+    """One ``engine.generate`` (of an encoder-decoder config: over
+    ``frames``) with its logits, timed with CUDA events after a
+    synchronize, with the launch counts (and G's and H's by variant) and
+    the peak device memory of that run alone.  Returns (tokens, logits,
+    info); the tokens are checked for shape, prompt and vocabulary, the
+    logits for finiteness."""
     cfg = engine.cfg
     batch, plen = prompts.shape
     torch.cuda.synchronize()
@@ -1119,7 +1198,8 @@ def timed_generate(engine: ServeEngine, prompts: torch.Tensor, new: int,
     rk.reset_launch_counts()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    tokens, logits = engine.generate(prompts, new, return_logits=True)
+    tokens, logits = engine.generate(prompts, new, frames,
+                                     return_logits=True)
     ev[1].record()
     ev[1].synchronize()
     info = {"generate_ms": ev[0].elapsed_time(ev[1]),
@@ -1135,17 +1215,19 @@ def timed_generate(engine: ServeEngine, prompts: torch.Tensor, new: int,
     return tokens, logits, info
 
 
-def time_steps(cfg, params, prompts: torch.Tensor, new: int, dev) -> dict:
-    """The prefill step and the ``new - 1`` decode steps of a generate,
+def time_steps(cfg, params, prompts: torch.Tensor, new: int, dev,
+               frames=None) -> dict:
+    """The prefill step (of an encoder-decoder config: over ``frames``,
+    the encoder included) and the ``new - 1`` decode steps of a generate,
     each timed alone with CUDA events, and the decode steps' launches."""
     batch, plen = prompts.shape
     prefill = make_prefill_step(cfg)
     step = make_decode_step(cfg)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
-    plog, cache = prefill(params, {"tokens": prompts})
+    plog, cache = prefill(params, {"tokens": prompts, "enc_frames": frames})
     ev[1].record()
-    cache = grow_cache(cfg, cache, batch, plen + new, dev)
+    cache = grow_cache(cache, plen + new)
     tok = torch.argmax(plog, -1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
     rk.reset_launch_counts()
@@ -1478,6 +1560,154 @@ def run_moe_serving(dev) -> dict:
     return out
 
 
+def encdec_frames(cfg, batch: int, rng, dev) -> torch.Tensor:
+    """Stub frame embeddings (B, F, d_model) as the serve CLIs draw them:
+    ``standard_normal * 0.02`` in the model's dtype, from ``rng`` right
+    after the prompts."""
+    return torch.from_numpy(rng.standard_normal(
+        (batch, cfg.encoder.num_frames, cfg.d_model)) * 0.02).to(
+            dev, torch_dtype(cfg.dtype))
+
+
+def cross_kv_kept(cfg, params, prompts, frames, max_seq: int) -> bool:
+    """Whether ``grow_cache`` hands on the prefill's own ``ck`` / ``cv``
+    tensors in every decoder block (no copy, not zeros)."""
+    _, cache = make_prefill_step(cfg)(params, {"tokens": prompts,
+                                               "enc_frames": frames})
+    grown = grow_cache(cache, max_seq)
+    return all(grown["unit"][i][key][name] is blk[name]
+               for i, unit in enumerate(cache["unit"])
+               for key, blk in unit.items() for name in ("ck", "cv"))
+
+
+def serve_encdec(cfg, params, prompts, frames, new: int, dev, *,
+                 variant: str, captures=()) -> dict:
+    """One served batch of an encoder-decoder config: a warm-up
+    ``generate`` (inside ``captures``), a timed one whose G launches are
+    split by layer (as many in the encoder, the decoder's self-attention
+    and its cross attention as each has layers, all in ``variant``), its
+    decode logits against ``forward_train`` on the generated sequence,
+    the grown cache's cross K/V, the encoder and the steps timed alone."""
+    batch, plen = prompts.shape
+    n_enc, n_dec = cfg.encoder.num_layers, cfg.num_layers
+    engine = ServeEngine(cfg, params, max_seq=plen + new)
+    with contextlib.ExitStack() as stack:
+        for c in captures:
+            stack.enter_context(c)
+        engine.generate(prompts, new, frames)
+    # G's launches by layer: the attention layer's ``attention`` (the
+    # encoder's self-attention is its non-causal call) and
+    # ``cross_attention``.
+    split = dict.fromkeys(("encoder", "decoder_self", "cross"), 0)
+    with GLaunches(lattn, "attention", split, lambda kw: (
+            "decoder_self" if kw["causal"] else "encoder")), \
+            GLaunches(lattn, "cross_attention", split, lambda kw: "cross"):
+        tokens, logits, info = timed_generate(engine, prompts, new, dev,
+                                              frames)
+    counts = info["launches"]
+    n_g = n_enc + 2 * n_dec
+    assert split == {"encoder": n_enc, "decoder_self": n_dec,
+                     "cross": n_dec}, split
+    assert counts["flash_attn"] == n_g, counts
+    assert info["flash_attn_variants"][variant] == n_g, info
+    assert sum(counts.values()) == n_g, counts
+    row = {"batch": batch, "prompt": plen, "new": new, **info,
+           "flash_attn_by_layer": dict(split)}
+    rk.reset_launch_counts()
+    full, _ = tfm.forward_train(params, cfg, tokens[:, :-1], frames)
+    row["forward_train_launches"] = rk.launch_counts()
+    assert row["forward_train_launches"]["flash_attn"] == n_g, row
+    row["rel_logits"], row["argmax_agreement"] = logits_diff(
+        logits, full[:, plen - 1:], cfg.vocab_size)
+    assert row["rel_logits"] < LM_REL_LIMIT, row["rel_logits"]
+    del full, tokens, logits
+    row["cross_kv_kept"] = cross_kv_kept(cfg, params, prompts, frames,
+                                         plen + new)
+    assert row["cross_kv_kept"]
+    row["encoder_ms"] = cuda_ms(lambda: tfm._encode(params, cfg, frames),
+                                reps=2, warmup=1)
+    steps = time_steps(cfg, params, prompts, new, dev, frames)
+    assert not any(steps["decode_launches"].values()), steps
+    row.update(steps)
+    log(f"  {cfg.dtype} {batch} x {plen} + {new}: generate "
+        f"{row['generate_ms']:.3f} ms ({row['tokens_per_s']:.1f} tok/s), "
+        f"encoder {row['encoder_ms']:.3f} ms, prefill "
+        f"{row['prefill_ms']:.3f} ms (encoder included), decode "
+        f"{row['decode_ms_per_step']:.3f} ms/step, peak "
+        f"{row['peak_bytes']} B; G by layer {row['flash_attn_by_layer']}, "
+        f"by variant {info['flash_attn_variants']}; decode launches "
+        f"{steps['decode_launches']}; decode vs forward_train "
+        f"{row['rel_logits']:.4g} (limit {LM_REL_LIMIT}, argmax agreement "
+        f"{row['argmax_agreement']}); grown ck / cv are the prefill's")
+    return row
+
+
+def run_encdec_serving(dev) -> dict:
+    """Phase 14: whisper_large_v3 at full width and depth (bf16, random
+    weights from seed 0, stub frames as the CLI draws them) served through
+    ``ServeEngine.generate`` for each batch of ENCDEC_BATCHES, then in
+    float32 (G's ``cuda_cores``) at ENCDEC_F32_BATCH; G on the first
+    encoder block's and the first cross attention's own activations."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(ENCDEC_ARCH)
+    assert (cfg.num_layers, cfg.encoder.num_layers, cfg.encoder.num_frames,
+            cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.dtype) == (
+                32, 32, 1500, 1280, 20, 20, 5120, 51866, "bfloat16"), cfg
+    params, n_params = init_lm(cfg, dev)
+    out = {"arch": cfg.name, "params": n_params, "served": {}}
+    enc_g = Capture(lattn, "flash_attention")
+    cross_g = Capture(lattn, "cross_attention")
+    for bi, (batch, plen, new) in enumerate(ENCDEC_BATCHES):
+        rng = np.random.default_rng(bi)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, plen), dtype=np.int32)).to(dev)
+        frames = encdec_frames(cfg, batch, rng, dev)
+        out["served"][f"{batch} x {plen} + {new}"] = serve_encdec(
+            cfg, params, prompts, frames, new, dev, variant="wgmma",
+            captures=(enc_g, cross_g) if bi == 0 else ())
+        del prompts, frames
+        free_card()
+
+    # G on the 8 x 4 prefill's own activations: the first encoder block's
+    # self-attention (the first G call) and the first cross attention
+    # (its query projected as ``cross_attention`` projects it).
+    (cparams, _, x, (ck, cv)), _ = cross_g.args
+    g_args = {"encoder": enc_g.args,
+              "cross": ((lattn._proj(x, cparams["wq"]), ck.contiguous(),
+                         cv.contiguous()),
+                        {"num_kv_heads": cfg.num_kv_heads, "causal": False})}
+    errs = {}
+    for what, ((q, k, v), kw) in g_args.items():
+        assert kw["causal"] is False, (what, kw)
+        errs[what] = g_close(fa.flash_attention(q, k, v, **kw),
+                             fa.flash_attention_plain(q, k, v, **kw),
+                             f"G on whisper {what}")
+        log(f"  real activations, {what}: G q {tuple(q.shape)} over k "
+            f"{tuple(k.shape)}, max abs err {errs[what]['max_abs_err']:.3g} "
+            f"(tol {TOL_G[q.dtype]}), rel RMS {errs[what]['rel_rms']:.3g} "
+            f"(limit {REL_G[q.dtype]})")
+    out["activation_err"] = errs
+    del params, enc_g, cross_g, g_args, cparams, x, ck, cv, q, k, v
+    free_card()
+
+    # Float32: the same seed-0 draws, unrounded; G's CUDA-core variant.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params, _ = init_lm(cfg32, dev)
+    batch, plen, new = ENCDEC_F32_BATCH
+    rng = np.random.default_rng(len(ENCDEC_BATCHES))
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, plen), dtype=np.int32)).to(dev)
+    frames = encdec_frames(cfg32, batch, rng, dev)
+    row = serve_encdec(cfg32, params, prompts, frames, new, dev,
+                       variant="cuda_cores")
+    out["served"][f"float32 {batch} x {plen} + {new}"] = row
+    assert row["rel_logits"] < ENCDEC_F32_REL_LIMIT, row["rel_logits"]
+    del params, prompts, frames
+    free_card()
+    return out
+
+
 def time_router_hist(pids: dict, p: int) -> list[dict]:
     """Phase 6, continued: E at the router's shapes (granite's 65,536
     prefill pids and 32 decode pids into its 40 experts), back to back
@@ -1521,29 +1751,36 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
                                  else "bytes")
 
 
-def time_g(dev, b: int, s: int, h: int, kv: int, d: int) -> dict:
-    """G at q (b, s, h, d), k/v (b, s, kv, d) bf16 causal beside its
-    operations bound, its plain version and SDPA on the same views."""
-    q, k, v = g_inputs((b, s, s, h, kv, d, True), torch.bfloat16, dev, 99)
-    pairs = s * (s + 1) // 2                 # causal (i, j), j <= i
+def time_g(dev, b: int, s: int, h: int, kv: int, d: int, *,
+           sk: int | None = None, causal: bool = True) -> dict:
+    """G at q (b, s, h, d), k/v (b, sk, kv, d) bf16 (sk defaults to s)
+    beside its operations bound, its plain version and SDPA on the same
+    views."""
+    sk = s if sk is None else sk
+    q, k, v = g_inputs((b, s, sk, h, kv, d, causal), torch.bfloat16, dev,
+                       99)
+    # The (i, j) pairs the function weighs: causal j <= i (square only).
+    pairs = s * (s + 1) // 2 if causal else s * sk
     bms, bby = bound(4.0 * b * h * pairs * d,
-                     2 * 2 * b * s * (h + kv) * d, BF16_FLOPS)
+                     2 * 2 * b * (s * h + sk * kv) * d, BF16_FLOPS)
     before = dict(fa.launches_by_variant)
-    fa.flash_attention(q, k, v, num_kv_heads=kv)
+    fa.flash_attention(q, k, v, num_kv_heads=kv, causal=causal)
     variant = next(n for n, c in fa.launches_by_variant.items()
                    if c != before[n])
     row = {
-        "shape": f"q ({b}, {s}, {h}, {d}), k/v ({b}, {s}, {kv}, {d}) bf16, "
-                 "causal", "variant": variant,
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, num_kv_heads=kv)),
+        "shape": f"q ({b}, {s}, {h}, {d}), k/v ({b}, {sk}, {kv}, {d}) bf16, "
+                 + ("causal" if causal else "non-causal"),
+        "variant": variant,
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, num_kv_heads=kv,
+                                                 causal=causal)),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
-            q, k, v, num_kv_heads=kv), reps=3, warmup=1),
+            q, k, v, num_kv_heads=kv, causal=causal), reps=3, warmup=1),
         "library_ms": cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=kv != h)),
+                is_causal=causal, enable_gqa=kv != h)),
         "library": "torch.nn.functional.scaled_dot_product_attention "
-                   "(is_causal=True) on (B, H, S, D) views",
+                   f"(is_causal={causal}) on (B, H, S, D) views",
         "bound_ms": bms, "bound_by": bby}
     row["vs_library"] = ("no slower" if row["ms"] <= row["library_ms"]
                          else "slower")
@@ -1552,12 +1789,17 @@ def time_g(dev, b: int, s: int, h: int, kv: int, d: int) -> dict:
 
 def time_lm_kernels(dev) -> dict[str, dict]:
     """Phase 6, continued: G at Zamba2's prefill shape (4 x 2048 x 32
-    heads of 64) and at the Qwen3-8B-shaped GQA shape of ``GRID_G``
-    (2048, 32 / 8 heads of 128), H at Zamba2's prefill shape, all bf16,
-    beside their bounds, plain versions and library calls."""
+    heads of 64), at the Qwen3-8B-shaped GQA shape of ``GRID_G`` (2048,
+    32 / 8 heads of 128) and non-causal at whisper's encoder (8 x 1500 x
+    20 / 20 heads of 64) and cross attention shapes (4 x 224 queries over
+    1500 frames), H at Zamba2's prefill shape, all bf16, beside their
+    bounds, plain versions and library calls."""
     zamba = time_g(dev, 4, 2048, 32, 32, 64)
     gqa = time_g(dev, 1, 2048, 32, 8, 128)
-    out = {"flash_attn": dict(zamba, per_shape=[zamba, gqa])}
+    encoder = time_g(dev, 8, 1500, 20, 20, 64, causal=False)
+    cross = time_g(dev, 4, 224, 20, 20, 64, sk=1500, causal=False)
+    out = {"flash_attn": dict(zamba, per_shape=[zamba, gqa, encoder,
+                                                cross])}
     bs, nc, cq, hh, p, n = 4, 8, 256, 64, 64, 64
     args = h_inputs((bs, nc, cq, hh, p, n), torch.bfloat16, dev, 98)
     tri = cq * (cq + 1) // 2
@@ -2388,6 +2630,11 @@ def main() -> int:
               "dense and sorted dispatch")
     moe = run_moe_serving(dev)
 
+    log_phase(f"[14] main path: encoder-decoder serving, {ENCDEC_ARCH} at "
+              "full width")
+    free_card()
+    encdec = run_encdec_serving(dev)
+
     log_phase("[6] kernel times at the main paths' shapes")
     times = time_kernels(dev, main_path["schedule"])
     other_times = time_group_kernels(dev)
@@ -2413,7 +2660,9 @@ def main() -> int:
                **{f"moe_generate_{impl}": moe["served"][
                    f"{impl} {LM_BATCHES[0][0]} x {LM_BATCHES[0][1]} + "
                    f"{LM_BATCHES[0][2]}"]["launches"]
-                  for impl in MOE_ENGINES}}
+                  for impl in MOE_ENGINES},
+               "encdec_generate": next(iter(encdec["served"].values()))[
+                   "launches"]}
     path_of = {"seg_agg": "groupby_gpu_only_partitioned",
                "hash_bucket": "groupby_gpu_only_partitioned",
                "radix_hist": "groupby_gpu_only_partitioned",
@@ -2455,6 +2704,12 @@ def main() -> int:
         log(f"  MoE unit {moe['unit']['arch']} x 2 layers {what}: generate "
             f"{r['generate_ms']:.3f} ms, prefill {r['prefill_ms']:.3f} ms, "
             f"decode {r['decode_ms_per_step']:.3f} ms/step, peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    for what, r in encdec["served"].items():
+        log(f"  whisper {what}: generate {r['generate_ms']:.3f} ms, encoder "
+            f"{r['encoder_ms']:.3f} ms, prefill {r['prefill_ms']:.3f} ms, "
+            f"decode {r['decode_ms_per_step']:.3f} ms/step, "
+            f"{r['tokens_per_s']:.1f} tok/s, peak "
             f"{r['peak_bytes'] / 2**30:.2f} GiB")
     log(f"  whole script {time.perf_counter() - T_START:.1f} s")
     log(smi)

@@ -1,12 +1,13 @@
 """Kernel G: flash attention forward (causal or full, grouped-query).
 
 Counterpart of ``repro/kernels/flash_attn/flash_attn.py``
-(``flash_attention_pallas``).  On CUDA tensors ``flash_attention``
-launches ``csrc/flash_attn.cu`` at every Sq and Sk (the ragged tail is
-masked inside the kernel); on CPU tensors it runs
-``flash_attention_plain``, which is the JAX oracle
-``flash_attention_ref``: ``_sdpa`` with the causal mask ``i >= j``.
-There is no fallback between the two: a head_dim, dtype or layout the
+(``flash_attention_pallas``).  ``flash_attention`` launches
+``csrc/flash_attn.cu`` on CUDA tensors at every Sq and Sk (the ragged
+tail is masked inside the kernel) and raises on any other device:
+``ops.flash_attention`` runs the oracle on CPU tensors.  The oracle
+``ref.flash_attention_ref`` (the JAX package's ``flash_attention_ref``:
+``_sdpa`` with the causal mask ``i >= j``, or with none) is re-exported
+here as ``flash_attention_plain``.  A head_dim, dtype or layout the
 kernel does not take raises.
 
 The kernel has three variants, chosen by ``variant_for`` from the dtype
@@ -27,6 +28,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from .ref import causal_mask  # noqa: F401
+from .ref import flash_attention_ref as flash_attention_plain  # noqa: F401
 
 HEAD_DIMS = (16, 32, 64, 96, 128)
 WGMMA_HEAD_DIMS = (64, 128)
@@ -62,23 +66,6 @@ def tma_strides(shape, itemsize: int, data_ptr: int) -> tuple[int, ...]:
             raise ValueError(f"TMA stride {st} B is not a multiple of 16 "
                              "below 2^40")
     return strides
-
-
-def causal_mask(sq: int, sk: int, device) -> torch.Tensor:
-    """(Sq, Sk) bool, True where key j is visible to query i (i >= j)."""
-    i = torch.arange(sq, device=device)
-    j = torch.arange(sk, device=device)
-    return i[:, None] >= j[None, :]
-
-
-def flash_attention_plain(q, k, v, *, num_kv_heads: int,
-                          causal: bool = True) -> torch.Tensor:
-    """Plain version: ``_sdpa`` with the causal mask (or none)."""
-    # Imported here: repro_torch.layers.attention imports this module.
-    from ...layers.attention import _sdpa
-
-    mask = causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
-    return _sdpa(q, k, v, mask, num_kv_heads)
 
 
 def _check(q, k, v, num_kv_heads: int) -> None:
@@ -136,11 +123,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Returns (B, Sq, H, D) in q's dtype."""
     _check(q, k, v, num_kv_heads)
     dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, num_kv_heads=num_kv_heads,
-                                     causal=causal)
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise ValueError(f"kernel G runs on CUDA tensors, not {dev} "
+                         "(ops.flash_attention takes CPU tensors)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")

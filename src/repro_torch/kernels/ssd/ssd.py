@@ -5,10 +5,12 @@ Per (batch, chunk, head):
 
     Y = (L o C B^T) diag(dt) X,   L[i, j] = exp(sum_{j<k<=i} dt_k A)
 
-zero above the diagonal.  On CUDA tensors ``ssd_intra_chunk`` launches
-``csrc/ssd_intra_chunk.cu`` at any chunk length up to 256; on CPU tensors
-it runs ``ssd_intra_chunk_plain``, the JAX oracle ``ssd_intra_chunk_ref``
-(the einsums of ``ssd_chunked``).  There is no fallback between the two.
+zero above the diagonal.  ``ssd_intra_chunk`` launches
+``csrc/ssd_intra_chunk.cu`` on CUDA tensors at any chunk length up to 256
+and raises on any other device: ``ops.ssd_intra_chunk`` runs the oracle
+on CPU tensors.  The oracle ``ref.ssd_intra_chunk_ref`` (the JAX
+package's: the einsums of ``ssd_chunked``) is re-exported here as
+``ssd_intra_chunk_plain``.
 
 Output dtype: float32 always, what ``ssd_chunked`` needs (it adds the
 inter-chunk term before it casts).  The Pallas kernel and its oracle
@@ -25,6 +27,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from .ref import ssd_intra_chunk_ref as ssd_intra_chunk_plain  # noqa: F401
 
 HEAD_DIMS = (16, 32, 64)
 STATE_DIMS = (16, 64, 128)
@@ -43,22 +47,6 @@ def variant_for(dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16:
         return "wgmma"
     raise TypeError(f"no kernel variant for {dtype}")
-
-
-def ssd_intra_chunk_plain(x, dt, b, c, a) -> torch.Tensor:
-    """Plain version, float32: x (B, NC, Q, H, P); dt (B, NC, Q, H);
-    b, c (B, NC, Q, N); a (H,)."""
-    # Imported here: repro_torch.layers.ssd imports this module.
-    from ...layers.ssd import _segsum
-
-    dtf = dt.float()
-    da = dtf * a.float()
-    # The exponential in float64: PyTorch's multi-threaded float32 exp on
-    # the CPU is off by up to 1e-4 in some processes.
-    l_mat = torch.exp(_segsum(da.permute(0, 1, 3, 2)).double()).float()
-    scores = torch.einsum("bcqn,bckn->bcqk", c.float(), b.float())
-    m = scores[:, :, None] * l_mat
-    return torch.einsum("bchqk,bckh,bckhp->bcqhp", m, dtf, x.float())
 
 
 def _check(x, dt, b, c, a) -> None:
@@ -90,10 +78,9 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     ``tools/check_hopper_kernels.py`` compares (empty on every path)."""
     _check(x, dt, b, c, a)
     dev = x.device
-    if dev.type == "cpu":
-        return ssd_intra_chunk_plain(x, dt, b, c, a)
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise ValueError(f"kernel H runs on CUDA tensors, not {dev} "
+                         "(ops.ssd_intra_chunk takes CPU tensors)")
     if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError(f"x, b, c must share float32 or bfloat16, got "
                         f"{x.dtype}, {b.dtype}, {c.dtype}")

@@ -4,9 +4,14 @@
       --prompt-len 2048 --new-tokens 32
   python -m repro_torch.launch.serve --arch mamba2_2_7b --smoke \\
       --device cpu
+  python -m repro_torch.launch.serve --arch whisper_large_v3 --smoke \\
+      --device cpu
 
 Counterpart of ``repro/launch/serve.py``.  Weights come from
-``init_params`` seeded 0 and prompts from ``numpy.random.default_rng(0)``.
+``init_params`` seeded 0 and prompts from ``numpy.random.default_rng(0)``;
+an encoder-decoder config's stub frame embeddings (B, F, d_model) are
+drawn from the same generator right after the prompts, as
+``standard_normal * 0.02`` in the model's dtype.
 The first ``generate`` is a warm-up (it builds the kernels); the second is
 timed, with CUDA events on a card and the host clock on the CPU, and the
 line names the device it ran on.
@@ -33,6 +38,7 @@ def main(argv=None):
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.relation import resolve_device
     from repro_torch.models import transformer as tfm
+    from repro_torch.models.params import torch_dtype
     from repro_torch.serve.engine import ServeEngine
 
     dev = resolve_device(args.device)
@@ -46,21 +52,26 @@ def main(argv=None):
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         dtype=np.int32)).to(dev)
+    enc = None
+    if cfg.encoder:
+        enc = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.encoder.num_frames, cfg.d_model)) * 0.02).to(
+                dev, torch_dtype(cfg.dtype))
     engine = ServeEngine(cfg, params,
                          max_seq=args.prompt_len + args.new_tokens + 8)
-    engine.generate(prompts, args.new_tokens)              # warm-up
+    engine.generate(prompts, args.new_tokens, enc)         # warm-up
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = engine.generate(prompts, args.new_tokens)
+        out = engine.generate(prompts, args.new_tokens, enc)
         end.record()
         end.synchronize()
         secs = start.elapsed_time(end) / 1e3
         where = torch.cuda.get_device_name(dev)
     else:
         t0 = time.perf_counter()
-        out = engine.generate(prompts, args.new_tokens)
+        out = engine.generate(prompts, args.new_tokens, enc)
         secs = time.perf_counter() - t0
         where = "cpu (host clock)"
     n_new = args.batch * args.new_tokens

@@ -1,12 +1,14 @@
-"""GQA attention: qk-norm / qkv-bias variants, causal prefill and decode.
+"""GQA attention: qk-norm / qkv-bias variants, causal, cross, and decode.
 
 Counterpart of ``repro/layers/attention.py``.  ``_sdpa`` is the JAX
 package's single-shot math.  ``_sdpa_chunked`` is where the JAX package
 tiles prefill attention over query blocks; the port computes the same
 function with kernel G (``kernels/flash_attn``) on a CUDA tensor, at any
-sequence length, and with ``_sdpa`` on a CPU tensor.  Decode (one query
-against a length-masked cache) stays plain torch, as the JAX package
-computes it outside Pallas.  Cross attention (whisper) is not ported yet.
+sequence length, causal or not, and with ``_sdpa`` on a CPU tensor.  The
+encoder's self-attention (``causal=False``) and the decoder's cross
+attention over the encoder's keys take the same route.  Decode (one query
+against a length-masked cache, or against the encoder's keys) stays plain
+torch, as the JAX package computes it outside Pallas.
 """
 from __future__ import annotations
 
@@ -14,14 +16,16 @@ import math
 
 import torch
 
-from ..kernels.flash_attn.flash_attn import flash_attention
+from ..kernels.flash_attn.ops import flash_attention
 from ..models.params import ParamSpec
 from .core import apply_rope, rmsnorm, rmsnorm_spec
 
 NEG_INF = -1e9
 
 
-def attn_specs(cfg) -> dict:
+def attn_specs(cfg, *, cross: bool = False) -> dict:
+    """Projections of a self-attention block, or of a cross-attention
+    block (``cross``: no qkv bias, no qk-norm)."""
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     out = {
@@ -30,13 +34,13 @@ def attn_specs(cfg) -> dict:
         "wv": ParamSpec((d, kv, hd), ("fsdp", "kv_heads", "head_dim")),
         "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "fsdp")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         out["bq"] = ParamSpec((h, hd), ("heads", "head_dim"), init="zeros")
         out["bk"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"),
                               init="zeros")
         out["bv"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"),
                               init="zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         out["q_norm"] = rmsnorm_spec(hd)
         out["k_norm"] = rmsnorm_spec(hd)
     return out
@@ -83,9 +87,10 @@ def _sdpa(q, k, v, mask, num_kv: int):
 
 def _sdpa_chunked(q, k, v, num_kv: int, *, causal: bool):
     """Prefill attention: kernel G on a CUDA tensor, ``_sdpa`` with the
-    causal mask on a CPU tensor.  (The JAX package splits the queries into
-    blocks of 128 so its scores fit memory; the split is not part of the
-    function, and kernel G keeps the scores out of memory itself.)"""
+    causal mask (or none) on a CPU tensor.  (The JAX package splits the
+    queries into blocks of 128 so its scores fit memory; the split is not
+    part of the function, and kernel G keeps the scores out of memory
+    itself.)"""
     return flash_attention(q, k.contiguous(), v.contiguous(),
                            num_kv_heads=num_kv, causal=causal)
 
@@ -96,6 +101,27 @@ def attention(params, cfg, x: torch.Tensor, positions: torch.Tensor,
     q, k, v = _project_qkv(params, cfg, x, positions)
     out = _sdpa_chunked(q, k, v, cfg.num_kv_heads, causal=causal)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
+
+
+def cross_attention(params, cfg, x: torch.Tensor,
+                    kv_cache: tuple[torch.Tensor, torch.Tensor]):
+    """Decoder-side cross attention over precomputed encoder K/V, with no
+    mask and no RoPE.  A prompt's queries take kernel G (``causal=False``)
+    on a CUDA tensor; one query row (a decode step) stays plain ``_sdpa``,
+    as ``decode_attention`` does."""
+    q = _proj(x, params["wq"])
+    k, v = kv_cache
+    if q.shape[1] == 1:
+        out = _sdpa(q, k, v, None, cfg.num_kv_heads)
+    else:
+        out = _sdpa_chunked(q, k, v, cfg.num_kv_heads, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def cross_kv(params, enc_out: torch.Tensor):
+    """The encoder output's keys and values for cross attention:
+    (B, F, KV, D) each, with no bias and no RoPE."""
+    return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])
 
 
 def decode_attention(params, cfg, x: torch.Tensor, k_cache: torch.Tensor,

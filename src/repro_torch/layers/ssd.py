@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssd.ssd import ssd_intra_chunk
+from ..kernels.ssd.ops import ssd_intra_chunk
 from ..models.params import ParamSpec
 from .core import rmsnorm, rmsnorm_spec
 

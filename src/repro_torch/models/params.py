@@ -78,7 +78,9 @@ def materialize(spec_tree, generator: torch.Generator | None,
                 else 1.0 / max(1.0, _fan_in(spec.shape)) ** 0.5
             w = torch.randn(spec.shape, generator=generator,
                             dtype=torch.float32, device=device)
-            out[k] = (w * scale).to(dt)
+            # Scaled in place: a full-width expert weight's float32 draw
+            # is 20 GiB, and a second one would not fit beside it.
+            out[k] = w.mul_(scale).to(dt)
     return out
 
 

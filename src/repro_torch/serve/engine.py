@@ -2,9 +2,11 @@
 
 Counterpart of ``repro/serve/engine.py`` on one card: no mesh, no
 sharding rules (``abstract_cache`` serves the JAX package's dry-run and
-is not ported).  The attention caches are allocated at ``max_seq``
+is not ported).  The self-attention caches are allocated at ``max_seq``
 before the first decode step, as the JAX engine grows them, and each
-decode step writes its key and value into them in place.
+decode step writes its key and value into them in place.  An
+encoder-decoder config's cross K/V (``ck`` / ``cv``) stay the prefill's
+own tensors, as the JAX engine pads only ``k`` and ``v``.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from ..models import transformer as tfm
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, batch):
-        return tfm.prefill(params, cfg, batch["tokens"])
+        return tfm.prefill(params, cfg, batch["tokens"],
+                           batch.get("enc_frames"))
     return prefill_step
 
 
@@ -31,22 +34,27 @@ def make_decode_step(cfg: ModelConfig):
     return decode_step
 
 
-def grow_cache(cfg: ModelConfig, cache: dict, batch: int, max_seq: int,
-               device) -> dict:
-    """The prefill cache with every attention cache copied into zeros of
-    ``max_seq`` positions; SSM and conv states are kept as they are."""
-    out = tfm.init_cache(cfg, batch, max_seq, device)
-    units = list(zip(out["unit"], cache["unit"]))
-    if cfg.tail:
-        units.append((out["tail"], cache["tail"]))
-    for dst_unit, src_unit in units:
-        for key, src in src_unit.items():
-            if "k" in src:
-                for name in ("k", "v"):
-                    s = src[name].shape[1]
-                    dst_unit[key][name][:, :s] = src[name]
-            else:
-                dst_unit[key] = src
+def _grow_block(blk: dict, max_seq: int) -> dict:
+    if "k" not in blk:
+        return blk
+    out = dict(blk)
+    for name in ("k", "v"):
+        src = blk[name]
+        out[name] = src.new_zeros((src.shape[0], max_seq) + src.shape[2:])
+        out[name][:, :src.shape[1]] = src
+    return out
+
+
+def grow_cache(cache: dict, max_seq: int) -> dict:
+    """The prefill cache with every self-attention ``k`` / ``v`` copied
+    into zeros of ``max_seq`` positions; cross K/V (``ck`` / ``cv``), SSM
+    and conv states are kept as they are, the same tensors."""
+    out = {"unit": [{key: _grow_block(blk, max_seq)
+                     for key, blk in unit.items()}
+                    for unit in cache["unit"]]}
+    if "tail" in cache:
+        out["tail"] = {key: _grow_block(blk, max_seq)
+                       for key, blk in cache["tail"].items()}
     return out
 
 
@@ -59,9 +67,12 @@ class ServeEngine:
     max_seq: int
 
     @torch.no_grad()
-    def generate(self, prompts: torch.Tensor, num_new: int, *,
+    def generate(self, prompts: torch.Tensor, num_new: int,
+                 enc_frames: torch.Tensor | None = None, *,
                  return_logits: bool = False):
         """prompts: (B, P) int -> (B, P + num_new) int32 tokens.
+        ``enc_frames`` (B, F, d_model): an encoder-decoder config's frame
+        embeddings, which the prefill encodes.
 
         With ``return_logits`` also the logits each new token was chosen
         from, (B, num_new, V): the prefill's, then each decode step's.
@@ -74,9 +85,9 @@ class ServeEngine:
             raise ValueError(f"max_seq {self.max_seq} holds no "
                              f"{p} + {num_new} - 1 positions")
         step = make_decode_step(cfg)
-        logits, cache = make_prefill_step(cfg)(self.params,
-                                               {"tokens": prompts})
-        cache = grow_cache(cfg, cache, b, self.max_seq, prompts.device)
+        logits, cache = make_prefill_step(cfg)(
+            self.params, {"tokens": prompts, "enc_frames": enc_frames})
+        cache = grow_cache(cache, self.max_seq)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         out, seen = [prompts.to(torch.int32), tok], [logits]
         for cache_len in range(p, p + num_new - 1):

@@ -362,7 +362,12 @@ GRID_G = [(2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
           (2, 256, 256, 4, 4, 32, True), (1, 256, 256, 8, 2, 64, True),
           (1, 1000, 1000, 4, 2, 96, True), (2, 37, 37, 4, 4, 16, True),
           (1, 100, 260, 8, 2, 128, False), (1, 1, 1, 2, 1, 64, True),
-          (1, 256, 256, 24, 8, 64, True), (1, 256, 256, 40, 8, 128, True)]
+          (1, 256, 256, 24, 8, 64, True), (1, 256, 256, 40, 8, 128, True),
+          # whisper_large_v3: the encoder over 1500 frames, cross attention
+          # of 224, 4 and 1 queries over them, the decoder's own prefill.
+          (2, 1500, 1500, 20, 20, 64, False), (2, 224, 1500, 20, 20, 64, False),
+          (8, 4, 1500, 20, 20, 64, False), (1, 1, 1500, 20, 20, 64, False),
+          (8, 4, 4, 20, 20, 64, True), (1, 1500, 1500, 20, 20, 64, False)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
@@ -605,6 +610,38 @@ def test_lm_generate_on_card_matches_cpu(dev, arch):
         (cfg.pattern_unit * cfg.num_units + cfg.tail).count("A")
     n_m = (cfg.pattern_unit * cfg.num_units + cfg.tail).count("M")
     assert counts["flash_attn"] == n_a and counts["ssd_intra_chunk"] == n_m
+    v = cfg.vocab_size
+    rel = ((gl.cpu() - wl)[..., :v].abs().max()
+           / wl[..., :v].abs().max()).item()
+    assert rel < 1e-4, rel
+    assert torch.equal(got.cpu(), want)
+
+
+def test_encdec_on_card_matches_cpu(dev):
+    """Reduced whisper in float32: the card runs G three ways per layer in
+    the prefill (encoder, decoder, cross), none in decode; its prefill and
+    decode logits match the CPU port's."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        tconfigs.reduced(tconfigs.get_config("whisper_large_v3")),
+        dtype="float32")
+    cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    card = tfm.init_params(cfg, torch.Generator().manual_seed(0)).to(dev)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 9)).astype(np.int32))
+    frames = torch.from_numpy((rng.standard_normal(
+        (2, cfg.encoder.num_frames, cfg.d_model)) * 0.02).astype(np.float32))
+    want, wl = ServeEngine(cfg, cpu, 15).generate(toks, 6, frames,
+                                                  return_logits=True)
+    reset_launch_counts()
+    got, gl = ServeEngine(cfg, card, 15).generate(
+        toks.to(dev), 6, frames.to(dev), return_logits=True)
+    assert launch_counts()["flash_attn"] == \
+        cfg.encoder.num_layers + 2 * cfg.num_layers
     v = cfg.vocab_size
     rel = ((gl.cpu() - wl)[..., :v].abs().max()
            / wl[..., :v].abs().max()).item()

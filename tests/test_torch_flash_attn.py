@@ -12,6 +12,8 @@ from repro.kernels.flash_attn.flash_attn import flash_attention_pallas
 from repro.kernels.flash_attn.ref import flash_attention_ref
 from repro.layers.attention import _sdpa as jax_sdpa
 from repro_torch.kernels.flash_attn import flash_attn as fa
+from repro_torch.kernels.flash_attn import ops as fops
+from repro_torch.kernels.flash_attn import ref as fref
 from repro_torch.layers import attention as tattn
 
 # tests/test_kernels.py's grid, with its tolerances: 3e-5 for float32,
@@ -56,9 +58,11 @@ def test_wrapper_on_cpu_matches_oracle(b, sq, sk, h, kv, d, causal, dtype):
     (jq, jk, jv), (tq, tk, tv) = _inputs(b, sq, sk, h, kv, d, dtype, sk + h)
     want = flash_attention_ref(jq, jk, jv, num_kv_heads=kv, causal=causal)
     fa.launches = 0
-    got = fa.flash_attention(tq, tk, tv, num_kv_heads=kv, causal=causal)
+    got = fops.flash_attention(tq, tk, tv, num_kv_heads=kv, causal=causal)
     assert fa.launches == 0          # the CPU runs the plain version
     assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
+    with pytest.raises(ValueError, match="CUDA"):   # the kernel's own
+        fa.flash_attention(tq, tk, tv, num_kv_heads=kv, causal=causal)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -71,10 +75,30 @@ def test_ragged_length_matches_jax_sdpa(dtype, h, kv, d):
     i = jnp.arange(100)
     want = jax_sdpa(jq, jk, jv, (i[:, None] >= i[None, :])[None, None, None],
                     kv)
-    got = fa.flash_attention(tq, tk, tv, num_kv_heads=kv, causal=True)
+    got = fops.flash_attention(tq, tk, tv, num_kv_heads=kv, causal=True)
     assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
     chunked = tattn._sdpa_chunked(tq, tk, tv, kv, causal=True)
     assert torch.equal(chunked, got)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,dtype", [
+    (2, 37, 37, 4, 2, 16, True, "float32"),
+    (2, 5, 24, 4, 4, 16, False, "float32"),       # whisper's cross shape
+    (1, 24, 24, 4, 4, 16, False, "bfloat16")])    # its encoder's
+def test_ref_and_ops_match_jax_ref(b, sq, sk, h, kv, d, causal, dtype):
+    """``ref.flash_attention_ref`` against ``repro``'s, causal and not,
+    at Sq != Sk; ``ops.flash_attention`` takes it on the CPU."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(b, sq, sk, h, kv, d, dtype, sk)
+    want = flash_attention_ref(jq, jk, jv, num_kv_heads=kv, causal=causal)
+    got = fref.flash_attention_ref(tq, tk, tv, num_kv_heads=kv,
+                                   causal=causal)
+    assert got.dtype == TDT[dtype] and got.shape == (b, sq, h, d)
+    assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
+    fa.launches = 0
+    assert torch.equal(fops.flash_attention(tq, tk, tv, num_kv_heads=kv,
+                                            causal=causal), got)
+    assert fa.launches == 0
+    assert fa.flash_attention_plain is fref.flash_attention_ref
 
 
 def test_causal_mask_is_lower_triangle_from_zero():

@@ -33,7 +33,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.layers.core", "repro_torch.layers.attention",
             "repro_torch.layers.ssd", "repro_torch.layers.moe",
             "repro_torch.kernels.flash_attn.flash_attn",
-            "repro_torch.kernels.ssd.ssd", "repro_torch.serve.engine",
+            "repro_torch.kernels.flash_attn.ops",
+            "repro_torch.kernels.flash_attn.ref",
+            "repro_torch.kernels.ssd.ssd", "repro_torch.kernels.ssd.ops",
+            "repro_torch.kernels.ssd.ref", "repro_torch.serve.engine",
             "repro_torch.launch.serve",
             "repro_torch.obs", "repro_torch.obs.metrics",
             "repro_torch.obs.audit", "repro_torch.obs.cardinality",

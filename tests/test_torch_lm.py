@@ -273,7 +273,8 @@ def test_bf16_prefill_within_archs_limit():
 @pytest.mark.parametrize("arch", ["zamba2_1_2b", "mamba2_2_7b", "qwen3_8b",
                                   "qwen2_5_14b", "phi3_mini_3_8b",
                                   "chameleon_34b", "granite_moe_3b",
-                                  "llama4_maverick_400b"])
+                                  "llama4_maverick_400b",
+                                  "whisper_large_v3"])
 def test_param_and_cache_specs_match_jax_at_full_size(arch):
     """Same names, shapes and dtypes as the JAX specs, without
     allocating: the full-size model and a serving cache."""
@@ -322,12 +323,31 @@ def test_full_size_granite_counts():
     assert specs["unit"]["0E"]["moe"]["wi_gate"].shape == (32, 40, 1536, 512)
 
 
-@pytest.mark.parametrize("arch", ["whisper_large_v3"])
-def test_moe_and_encoder_configs_raise(arch):
-    cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="A2"):
+def test_full_size_whisper_counts():
+    """whisper_large_v3 from the specs: 32 encoder and 32 decoder layers;
+    ``param_count`` approximates the cross attention, the specs do not."""
+    cfg = tconfigs.get_config("whisper_large_v3")
+    specs = ttfm.param_specs(cfg)
+    n = sum(np.prod(s.shape) for _, s in tparams.leaves(specs))
+    assert n == 2_020_682_240
+    assert specs["encoder"]["unit"]["0D"]["attn"]["wq"].shape == \
+        (32, 1280, 20, 64)
+    assert specs["unit"]["0D"]["cross"]["wk"].shape == (32, 1280, 20, 64)
+    assert set(specs["unit"]["0D"]) == {"ln1", "attn", "ln2", "mlp",
+                                        "ln_cross", "cross"}
+    assert set(specs["encoder"]["unit"]["0D"]) == {"ln1", "attn", "ln2",
+                                                   "mlp"}
+    cache = ttfm.cache_specs(cfg, 8, 36)["unit"]["0D"]
+    assert cache["ck"].shape == (32, 8, 1500, 20, 64)
+    assert cache["k"].shape == (32, 8, 36, 20, 64)
+
+
+def test_unported_block_types_raise():
+    cfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_config(
+        "qwen3_8b")), pattern_unit="DX", num_layers=2)
+    with pytest.raises(NotImplementedError, match="X"):
         ttfm.param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(NotImplementedError, match="X"):
         ttfm.init_params(cfg, torch.Generator().manual_seed(0))
 
 

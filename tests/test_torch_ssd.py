@@ -17,6 +17,8 @@ from repro.kernels.ssd.ssd import ssd_intra_chunk_pallas
 from repro.layers import ssd as jssd
 from repro.models.params import materialize as jmaterialize
 from repro_torch.core.interop import _tensors_like
+from repro_torch.kernels.ssd import ops as tops
+from repro_torch.kernels.ssd import ref as tref
 from repro_torch.kernels.ssd import ssd as tker
 from repro_torch.layers import ssd as tssd
 from repro_torch.models.transformer import Params
@@ -66,10 +68,29 @@ def test_plain_matches_pallas_interpret(bs, nc, q, h, p, n, dtype):
 def test_wrapper_on_cpu_matches_oracle(bs, nc, q, h, p, n, dtype):
     jin, tin = _kernel_inputs(bs, nc, q, h, p, n, dtype, q + h)
     tker.launches = 0
-    got = tker.ssd_intra_chunk(*tin)
+    got = tops.ssd_intra_chunk(*tin)
     assert tker.launches == 0        # the CPU runs the plain version
     assert_allclose(_np(got), _np(ssd_intra_chunk_ref(*jin)),
                     rtol=TOL[dtype], atol=TOL[dtype])
+    with pytest.raises(ValueError, match="CUDA"):   # the kernel's own
+        tker.ssd_intra_chunk(*tin)
+
+
+@pytest.mark.parametrize("bs,nc,q,h,p,n,dtype", [
+    (2, 3, 16, 4, 16, 16, "float32"), (1, 2, 37, 2, 32, 64, "bfloat16")])
+def test_ref_and_ops_match_jax_ref(bs, nc, q, h, p, n, dtype):
+    """``ref.ssd_intra_chunk_ref`` against ``repro``'s (which returns x's
+    dtype; the port's float32), at a ragged chunk too; ``ops`` takes it on
+    the CPU."""
+    jin, tin = _kernel_inputs(bs, nc, q, h, p, n, dtype, q + p)
+    got = tref.ssd_intra_chunk_ref(*tin)
+    assert got.dtype == torch.float32 and got.shape == (bs, nc, q, h, p)
+    assert_allclose(_np(got), _np(ssd_intra_chunk_ref(*jin)),
+                    rtol=TOL[dtype], atol=TOL[dtype])
+    tker.launches = 0
+    assert torch.equal(tops.ssd_intra_chunk(*tin), got)
+    assert tker.launches == 0
+    assert tker.ssd_intra_chunk_plain is tref.ssd_intra_chunk_ref
 
 
 def test_wrapper_rejects_bad_shapes():

@@ -3,22 +3,29 @@
     python3 tools/profile_torch_lm.py [--arch zamba2_1_2b] [--batch 4]
         [--prompt-len 2048] [--steps 8] [--trace-dir reports/torch]
         [--moe-impl dense|sorted]
+    python3 tools/profile_torch_lm.py --arch whisper_large_v3 --batch 8 \\
+        --prompt-len 4 --steps 31
 
 Builds the config at full width (random weights, seed 0; an MoE config
-under ``--moe-impl``, by default its own dispatch engine), warms up with
-one ``ServeEngine.generate``, then traces with ``torch.profiler``:
+under ``--moe-impl``, by default its own dispatch engine; an
+encoder-decoder config with stub frames drawn as the serve CLI draws
+them), warms up with one ``ServeEngine.generate``, then traces with
+``torch.profiler``:
 
+* an encoder-decoder config's encoder (``_encode``) alone;
 * one prefill (``make_prefill_step``) of ``batch`` x ``prompt-len``
-  tokens;
+  tokens (with the encoder);
 * ``steps`` decode steps (``make_decode_step``) against the prefill's
   cache.
 
 For each it prints the wall time (host clock around work that ends in a
 synchronize, under the profiler), the device time summed over kernels,
 the busy share (device time over wall time; the port runs on one
-stream), the kernel launches, and the 12 kernels with the most device
-time.  Chrome traces go to ``<trace-dir>/lm_{prefill,decode}_trace.json``.
-Prints the card's name and power limit first.  Needs a CUDA card.
+stream), the kernel launches, the device time split into matmuls, kernel
+G and the rest (elementwise and copies), and the 12 kernels with the
+most device time.  Chrome traces go to
+``<trace-dir>/lm_{encode,prefill,decode}_trace.json``.  Prints the card's
+name and power limit first.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -36,8 +43,27 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.params import torch_dtype  # noqa: E402
 from repro_torch.serve.engine import (ServeEngine, grow_cache,  # noqa: E402
                                       make_decode_step, make_prefill_step)
+
+
+# Substrings of the kernel names that cuBLAS and CUTLASS give matrix
+# products (and matrix-vector products) on Hopper; G's kernels are
+# csrc/flash_attn.cu's flash_fwd_{wgmma,bf16,f32}.
+MATMUL_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")
+
+
+def split_of(rows, dev_us) -> dict:
+    """Device ms of ``rows`` (kernel rows) as matmuls, G and the rest."""
+    out = {"matmul": 0.0, "flash_attn": 0.0, "other": 0.0}
+    for e in rows:
+        name = e.key.lower()
+        kind = ("flash_attn" if "flash_fwd" in name else
+                "matmul" if any(m in name for m in MATMUL_NAMES) else
+                "other")
+        out[kind] += dev_us(e) / 1e3
+    return out
 
 
 def traced(name: str, fn, trace_dir: Path, per: int = 1) -> dict:
@@ -66,12 +92,15 @@ def traced(name: str, fn, trace_dir: Path, per: int = 1) -> dict:
                   key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
     launches = sum(e.count for e in rows)
+    split = {k: v / per for k, v in split_of(rows, dev_us).items()}
     out = {"wall_ms": wall_ms / per, "busy_ms": busy_ms / per,
-           "busy_share": busy_ms / wall_ms, "launches": launches / per}
+           "busy_share": busy_ms / wall_ms, "launches": launches / per,
+           "split_ms": split}
     print(f"{name}: wall {out['wall_ms']:.3f} ms (host clock, under the "
           f"profiler), device busy {out['busy_ms']:.3f} ms, busy share "
           f"{out['busy_share']:.3f}, {out['launches']:.0f} kernel launches"
-          f"{' per step' if per > 1 else ''}")
+          f"{' per step' if per > 1 else ''}; device ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     for e in rows[:12]:
         print(f"  {dev_us(e) / 1e3 / per:9.3f} ms  x{e.count / per:<7g} "
               f"{e.key[:90]}")
@@ -100,19 +129,30 @@ def main() -> int:
         cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
     params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     b, p, steps = args.batch, args.prompt_len, args.steps
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (b, p), dtype=np.int32)).to(dev)
-    ServeEngine(cfg, params, max_seq=p + steps + 1).generate(prompts, 4)
+    frames = None
+    if cfg.encoder:
+        frames = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder.num_frames, cfg.d_model)) * 0.02).to(
+                dev, torch_dtype(cfg.dtype))
+    ServeEngine(cfg, params, max_seq=p + steps + 1).generate(prompts, 4,
+                                                             frames)
     print(f"{cfg.name} ({cfg.moe_impl if cfg.moe else 'no MoE'}): batch "
           f"{b}, prompt {p}, {steps} decode steps")
     prefill, step = make_prefill_step(cfg), make_decode_step(cfg)
     held = {}
 
     def run_prefill():
-        held["logits"], held["cache"] = prefill(params, {"tokens": prompts})
+        held["logits"], held["cache"] = prefill(
+            params, {"tokens": prompts, "enc_frames": frames})
 
+    if cfg.encoder:
+        traced("encode", lambda: tfm._encode(params, cfg, frames),
+               Path(args.trace_dir))
     traced("prefill", run_prefill, Path(args.trace_dir))
-    cache = grow_cache(cfg, held["cache"], b, p + steps + 1, dev)
+    cache = grow_cache(held["cache"], p + steps + 1)
     tok = torch.argmax(held["logits"], -1).to(torch.int32)[:, None]
 
     def run_decode():
