@@ -87,6 +87,30 @@ just after, and verifies each against a NumPy oracle:
   G's ``cuda_cores``); G on the first encoder block's and the first cross
   attention's activations.
 
+* training (phase 15): zamba2_1_2b at full width and depth (bf16, seed
+  0, remat "full") through ``make_train_step``: six steps of
+  ``SyntheticLM(32000, 4096, 4)``, five of 4 sequences as two
+  microbatches of 2 x 4096 and one of 2 x 4096 in one microbatch, each
+  with its time (clock stopped after ``synchronize``), tokens/s, loss,
+  gradient norm, lr, G and H launches by variant (12 and 62 a
+  microbatch, all ``wgmma``: each unit's blocks run again in its
+  recompute, the tail's do not) and peak memory; step 0's loss against
+  plain cross-entropy over ``forward_train``'s whole logits; one
+  microbatch's loss and gradient through G and H (their autograd
+  Functions, with plain backward) against the same through their plain
+  versions alone, leaf by leaf, on two microbatches: in bfloat16, in
+  float32 at the same weights, and bfloat16's own rounding (plain
+  bfloat16 against plain float32) beside them; then the same through a
+  G that loses one key tile past 2048, which must break the limits (the
+  control that shows they can see such a fault); G's and H's plain
+  backward timed alone at the training shapes; then, in a child process
+  that sets ``CUBLAS_WORKSPACE_CONFIG`` (so the rest of the script keeps
+  PyTorch's default cuBLAS workspace), at reduced(zamba2_1_2b) under
+  ``torch.use_deterministic_algorithms``: 2 steps against 1, a
+  checkpoint, a restore and 1 more, bit for bit, and
+  ``launch.train.main`` run twice with the same flags, the second
+  resuming from the first's checkpoint and ending on its loss.
+
 Kernel F (partitioned probe) is held against its plain version first,
 like A-E, on sorted and on permuted rows (K from 1 to 2^20) and on
 ``build_partitioned_table``'s rows of negative build keys, and again at
@@ -114,6 +138,11 @@ F (a TMA ring, a producer warp, six consumer groups) at the probe join's
 layout.  E and F are also timed in a CUDA graph (``graph_ms``), the
 device's time without the host's per-call work.
 
+G's and H's rows of the ``kernels`` record add ``train`` (the kernel and
+its plain backward timed at the training shapes) and every row's
+``launches_by_path`` a ``train_step`` entry (one step of two
+microbatches).
+
 The second-to-last line is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, and the
 script exits non-zero without a result.  It also exits non-zero without a
@@ -122,17 +151,22 @@ CUDA device, or without the rest of the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
 import json
+import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -162,7 +196,21 @@ import repro_torch.core.partition as cpart  # noqa: E402
 import repro_torch.layers.attention as lattn  # noqa: E402
 import repro_torch.layers.moe as lmoe  # noqa: E402
 import repro_torch.layers.ssd as lssd  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import (restore_checkpoint,  # noqa: E402
+                                    save_checkpoint)
+from repro_torch.configs import ShapeSpec, get_config, reduced  # noqa: E402
+from repro_torch.core.tree import (flatten_with_paths,  # noqa: E402
+                                   param_tree, tree_leaves)
+from repro_torch.data.pipeline import SyntheticLM, make_batch  # noqa: E402
+from repro_torch.kernels.flash_attn import ops as gops  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
+    flash_attention_ref)
+from repro_torch.kernels.ssd import ops as hops  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.train.step import (loss_and_grads,  # noqa: E402
+                                    make_train_step)
 from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
 from repro_torch.kernels.ssd import ssd as kssd  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -226,9 +274,10 @@ LM_REL_LIMIT = 0.06         # tests/test_archs.py:83
 # Kernel G's grid (B, Sq, Sk, H, KV, D, causal): tests/test_kernels.py:92-97,
 # Zamba2's prefill, a Qwen3-8B-shaped GQA case, D = 96, a ragged length,
 # the MoE configs' GQA ratios: granite 24 / 8 heads of 64, llama4 40 /
-# 8 of 128, and whisper_large_v3's 20 / 20 heads of 64 non-causal at its
+# 8 of 128, whisper_large_v3's 20 / 20 heads of 64 non-causal at its
 # 1500 encoder frames (the encoder; cross attention of 224, 4 and 1
-# queries) and causal at a 4-token prompt (the decoder's own prefill).
+# queries) and causal at a 4-token prompt (the decoder's own prefill),
+# and Zamba2's training microbatch (2 x 4096: key tiles past 2048).
 GRID_G = ((2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
           (2, 256, 256, 4, 4, 32, True), (1, 256, 256, 8, 2, 64, True),
           (4, 2048, 2048, 32, 32, 64, True), (1, 2048, 2048, 32, 8, 128, True),
@@ -236,7 +285,8 @@ GRID_G = ((2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
           (1, 256, 256, 24, 8, 64, True), (1, 256, 256, 40, 8, 128, True),
           (2, 1500, 1500, 20, 20, 64, False), (2, 224, 1500, 20, 20, 64, False),
           (8, 4, 1500, 20, 20, 64, False), (1, 1, 1500, 20, 20, 64, False),
-          (8, 4, 4, 20, 20, 64, True), (1, 1500, 1500, 20, 20, 64, False))
+          (8, 4, 4, 20, 20, 64, True), (1, 1500, 1500, 20, 20, 64, False),
+          (2, 4096, 4096, 32, 32, 64, True))
 # Kernel H's grid (B, NC, Q, H, P, N): tests/test_kernels.py:114-116,
 # Zamba2's prefill, Mamba2-2.7B's state width and a ragged chunk.
 GRID_H = ((2, 3, 64, 4, 32, 16), (1, 2, 128, 8, 64, 64),
@@ -296,6 +346,55 @@ MOE_AUX_REL = 1e-5
 ENCDEC_ARCH = "whisper_large_v3"
 ENCDEC_BATCHES = ((8, 4, 32), (4, 224, 16))
 ENCDEC_F32_BATCH = (2, 224, 16)
+# Phase 15, training: Zamba2-1.2B at full width and depth (the config
+# whose forward runs G and H), 4096 tokens a sequence (the train_4k
+# cell's length, configs/base.py), 4 sequences a step as two microbatches
+# of 2, then a last step of 2 sequences in one microbatch; AdamW as
+# launch/train.py builds it (lr 1e-3, warmup min(20, steps // 5)).
+TRAIN_ARCH = "zamba2_1_2b"
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 6
+TRAIN_LR = 1e-3
+# The full-width gradient through G and H against the one through their
+# plain versions (forward and backward), on two microbatches, with
+# RMS(diff) / RMS(plain) per leaf and over the whole gradient.  In
+# bfloat16: the loss, the whole gradient, the median leaf and the worst
+# of the six attention blocks' q/k/v/o projections; in float32 at the
+# same weights: the loss and every leaf.  Control for bfloat16's
+# rounding: the distance from the plain float32 gradient through the
+# kernels in bfloat16 over the same through the plain versions in
+# bfloat16, for the whole gradient and for the worst leaf.  Readings on
+# an H100 80GB HBM3 at 700 W (PERF.md): sound 9.7e-6, 1.03e-3,
+# 1.04e-3, 0.0142, 0, 4.1e-5, 1.014, 1.167; G with one 64-key tile past
+# 2048 lost 5.8e-4, 5.7e-3, 6.1e-3, 0.647, 2.8e-4, 0.65, 2.45, 4.10.
+# Each limit sits between the two; the float32 leaf limit ten times the
+# sound reading (the conv leaves of Mamba2 blocks: their gradient sums
+# cancel, so plain bfloat16 alone moves them by up to 0.55).
+TRAIN_LOSS_REL = 1e-4
+TRAIN_WHOLE_REL = 3e-3
+TRAIN_MEDIAN_LEAF_REL = 3e-3
+TRAIN_ATTN_PROJ_REL = 1e-1
+TRAIN_F32_LOSS_REL = 1e-6
+TRAIN_F32_LEAF_REL = 4e-4
+TRAIN_BF16_WHOLE_RATIO = 1.2
+TRAIN_BF16_WORST_RATIO = 2.0
+# The fault control: keys and values [2048, 2112) zeroed in G's kernel
+# path, and the limits it must break.
+TRAIN_FAULT_KEYS = (2048, 2112)
+TRAIN_FAULT_BREAKS = {"loss", "whole", "median leaf", "attention projection",
+                      "f32 loss", "f32 leaf", "whole ratio"}
+# Step 0's loss against plain cross-entropy over ``forward_train``'s
+# whole logits at the same weights (float32 over the same bf16 logits:
+# only the order of the sums differs).
+TRAIN_LOSS0_REL = 1e-4
+# The resume check and the CLI at reduced(zamba2_1_2b), bit for bit
+# under torch.use_deterministic_algorithms, in a child process started
+# with this flag and CUBLAS_WORKSPACE_CONFIG set (cuBLAS reads it once,
+# when it starts).
+TRAIN_SMALL_SHAPE = (2, 128)
+RESUME_FLAG = "--resume-check"
 
 
 def log(*a):
@@ -2572,11 +2671,422 @@ def run_paper_mechanisms(dev) -> dict:
     return out
 
 
+@torch.no_grad()
+def plain_xent(params, cfg, batch, micro: int) -> float:
+    """The mean over ``batch``'s microbatches of plain cross-entropy over
+    ``forward_train``'s whole logits (the real vocabulary)."""
+    out = []
+    for i in range(0, batch["tokens"].shape[0], micro):
+        logits, _ = tfm.forward_train(params, cfg,
+                                      batch["tokens"][i:i + micro])
+        out.append(float(torch.nn.functional.cross_entropy(
+            logits[..., :cfg.vocab_size].float().flatten(0, 1),
+            batch["labels"][i:i + micro].long().flatten())))
+        del logits
+    return float(np.mean(out))
+
+
+@contextlib.contextmanager
+def plain_lm_kernels():
+    """G and H replaced in the layers by their plain versions, forward and
+    backward by autograd (no kernel launches)."""
+    g, h = lattn.flash_attention, lssd.ssd_intra_chunk
+    lattn.flash_attention, lssd.ssd_intra_chunk = (flash_attention_ref,
+                                                   ssd_intra_chunk_ref)
+    try:
+        yield
+    finally:
+        lattn.flash_attention, lssd.ssd_intra_chunk = g, h
+
+
+def microbatch_grads(params, cfg, batch) -> tuple[float, list]:
+    """One microbatch's loss and every leaf's gradient."""
+    m, grads = loss_and_grads(params, cfg, batch,
+                              tree_leaves(param_tree(params)))
+    return float(m["loss"]), grads
+
+
+@contextlib.contextmanager
+def diluted_g(lo: int, hi: int):
+    """Kernel G with keys and values ``[lo, hi)`` zeroed wherever the
+    keys reach ``hi``: a known fault (a key tile past 2048 lost) that the
+    gradient check must catch."""
+    real = fa.flash_attention
+
+    def faulty(q, k, v, **kw):
+        if k.shape[1] >= hi:
+            k, v = k.clone(), v.clone()
+            k[:, lo:hi] = 0
+            v[:, lo:hi] = 0
+        return real(q, k, v, **kw)
+
+    fa.flash_attention = faulty
+    try:
+        yield
+    finally:
+        fa.flash_attention = real
+
+
+def kernel_grads(params, cfg, batch, n_g: int, n_h: int):
+    """One microbatch's (loss, gradient) through G and H, which must
+    launch ``n_g`` and ``n_h`` times."""
+    rk.reset_launch_counts()
+    out = microbatch_grads(params, cfg, batch)
+    counts = rk.launch_counts()
+    assert counts["flash_attn"] == n_g and \
+        counts["ssd_intra_chunk"] == n_h, counts
+    return out
+
+
+def plain_grads(params, cfg, batch):
+    """The same through G's and H's plain versions, which launch
+    nothing."""
+    rk.reset_launch_counts()
+    with plain_lm_kernels():
+        out = microbatch_grads(params, cfg, batch)
+    assert not any(rk.launch_counts().values()), rk.launch_counts()
+    return out
+
+
+def leaf_rel(names, got, want) -> tuple[dict, float]:
+    """Each leaf's RMS(got - want) / RMS(want), and the whole gradient's."""
+    leaf, num, den = {}, 0.0, 0.0
+    for name, a, b in zip(names, got, want):
+        a, b = a.float(), b.float()
+        d2, w2 = float((a - b).square().sum()), float(b.square().sum())
+        num, den = num + d2, den + w2
+        leaf[name] = math.sqrt(d2 / max(w2, 1e-30))
+    return leaf, math.sqrt(num / den)
+
+
+def worst(d: dict, n: int = 3) -> list:
+    return sorted(d.items(), key=lambda kv: -kv[1])[:n]
+
+
+def by_kind(leaf: dict, names: list) -> dict:
+    """The largest of ``leaf`` over each kind of leaf among ``names``
+    (the path past the unit's index: "5A/attn/wq")."""
+    out = {}
+    for n in names:
+        kind = n.split("/", 2)[-1]
+        out[kind] = max(out.get(kind, 0.0), leaf[n])
+    return out
+
+
+def grad_readings(names, attn, proj, k16, k32, p16, p32) -> dict:
+    """The gradient check's readings from the (loss, gradient) pairs
+    through the kernels (``k16``, ``k32``) and through the plain versions
+    (``p16``, ``p32``) in bfloat16 and float32."""
+    leaf, whole = leaf_rel(names, k16[1], p16[1])
+    leaf32, whole32 = leaf_rel(names, k32[1], p32[1])
+    noise, noise_whole = leaf_rel(names, p16[1], p32[1])
+    kern, kern_whole = leaf_rel(names, k16[1], p32[1])
+    return {
+        "bf16": {"loss": k16[0], "loss_rel": abs(k16[0] - p16[0]) / p16[0],
+                 "whole_rel": whole,
+                 "median_leaf_rel": float(np.median(list(leaf.values()))),
+                 "attn_proj_rel": max(leaf[n] for n in proj),
+                 "worst_leaves": worst(leaf),
+                 "attn_by_kind": by_kind(leaf, attn)},
+        "f32": {"loss": k32[0], "loss_rel": abs(k32[0] - p32[0]) / p32[0],
+                "whole_rel": whole32,
+                "median_leaf_rel": float(np.median(list(leaf32.values()))),
+                "worst_leaf_rel": max(leaf32.values()),
+                "worst_leaves": worst(leaf32)},
+        "bf16_vs_f32": {"plain_whole": noise_whole,
+                        "kernel_whole": kern_whole,
+                        "whole_ratio": kern_whole / noise_whole,
+                        "plain_worst": worst(noise),
+                        "kernel_worst": worst(kern),
+                        "worst_ratio": max(kern.values())
+                        / max(noise.values()),
+                        "plain_attn_by_kind": by_kind(noise, attn)}}
+
+
+def limits_broken(r: dict) -> set:
+    """The gradient check's limits that readings ``r`` break."""
+    b16, f32, c = r["bf16"], r["f32"], r["bf16_vs_f32"]
+    return {name for name, value, limit in (
+        ("loss", b16["loss_rel"], TRAIN_LOSS_REL),
+        ("whole", b16["whole_rel"], TRAIN_WHOLE_REL),
+        ("median leaf", b16["median_leaf_rel"], TRAIN_MEDIAN_LEAF_REL),
+        ("attention projection", b16["attn_proj_rel"], TRAIN_ATTN_PROJ_REL),
+        ("f32 loss", f32["loss_rel"], TRAIN_F32_LOSS_REL),
+        ("f32 leaf", f32["worst_leaf_rel"], TRAIN_F32_LEAF_REL),
+        ("whole ratio", c["whole_ratio"], TRAIN_BF16_WHOLE_RATIO),
+        ("worst ratio", c["worst_ratio"], TRAIN_BF16_WORST_RATIO))
+        if not value < limit}
+
+
+def log_grad_readings(what: str, r: dict) -> None:
+    b16, f32, c = r["bf16"], r["f32"], r["bf16_vs_f32"]
+    log(f"  {what}, through G and H vs their plain versions: bf16 loss rel "
+        f"{b16['loss_rel']:.3g}, whole {b16['whole_rel']:.4g}, median leaf "
+        f"{b16['median_leaf_rel']:.4g}, worst attention projection "
+        f"{b16['attn_proj_rel']:.4g}, worst leaves {b16['worst_leaves']}; "
+        f"f32 loss rel {f32['loss_rel']:.3g}, whole {f32['whole_rel']:.4g}"
+        f", median leaf {f32['median_leaf_rel']:.4g}, worst leaves "
+        f"{f32['worst_leaves']}")
+    log(f"  {what}, bf16 against the plain f32 gradient: whole plain "
+        f"{c['plain_whole']:.4g}, through G and H {c['kernel_whole']:.4g} "
+        f"(ratio {c['whole_ratio']:.4f}); worst leaves plain "
+        f"{c['plain_worst']}, through G and H {c['kernel_worst']} (ratio "
+        f"{c['worst_ratio']:.4f})")
+    log(f"  {what}, attention blocks' leaves by kind, the largest of the "
+        f"six: bf16 through G and H vs plain {b16['attn_by_kind']}; plain "
+        f"bf16 vs plain f32 {c['plain_attn_by_kind']}; limits broken "
+        f"{sorted(limits_broken(r))}")
+
+
+def check_train_grads(params, cfg, micros: list, n_g: int,
+                      n_h: int) -> dict:
+    """The gradient through G and H (and their plain backward) against
+    the one through their plain versions alone, on the card, on each of
+    ``micros``: in bfloat16, in float32 at the same weights, and each
+    bfloat16 gradient's distance from the plain float32 one (plain
+    bfloat16's own is bfloat16's rounding).  On the first microbatch the
+    same through a G with a key tile past 2048 lost (``diluted_g``), which
+    must break every limit in ``TRAIN_FAULT_BREAKS``."""
+    names = list(flatten_with_paths(param_tree(params)))
+    attn = [n for n in names if re.search(r"/\d+A/", n)]
+    proj = [n for n in attn if re.search(r"/attn/w[qkvo]$", n)]
+    assert len(proj) == 4 * (cfg.pattern_unit * cfg.num_units).count("A")
+    p32 = copy.deepcopy(params).float()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out = {"sound": []}
+    for j, batch in enumerate(micros):
+        plain = (plain_grads(params, cfg, batch),
+                 plain_grads(p32, cfg32, batch))
+        r = grad_readings(names, attn, proj,
+                          kernel_grads(params, cfg, batch, n_g, n_h),
+                          kernel_grads(p32, cfg32, batch, n_g, n_h), *plain)
+        out["sound"].append(r)
+        log_grad_readings(f"microbatch {j} "
+                          f"{tuple(batch['tokens'].shape)}", r)
+        if j == 0:
+            with diluted_g(*TRAIN_FAULT_KEYS):
+                out["fault"] = grad_readings(
+                    names, attn, proj,
+                    kernel_grads(params, cfg, batch, n_g, n_h),
+                    kernel_grads(p32, cfg32, batch, n_g, n_h), *plain)
+            log_grad_readings(f"microbatch 0 through G with keys "
+                              f"{list(TRAIN_FAULT_KEYS)} lost (the fault "
+                              f"control)", out["fault"])
+        del plain
+    del p32
+    for r in out["sound"]:
+        assert not limits_broken(r), (limits_broken(r), r)
+    assert TRAIN_FAULT_BREAKS <= limits_broken(out["fault"]), out["fault"]
+    return out
+
+
+def time_train_backward(dev, micro: int, seq: int, cfg) -> dict:
+    """G's and H's plain backward alone at the training shapes, beside the
+    forward kernel's time on the same inputs (CUDA events)."""
+    h, d = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = g_inputs((micro, seq, seq, h, h, d, True), torch.bfloat16,
+                       dev, 97)
+    go = torch.randn_like(q)
+    s = cfg.ssm
+    nh = s.expand * cfg.d_model // s.head_dim
+    shape = (micro, seq // s.chunk, s.chunk, nh, s.head_dim, s.d_state)
+    args = h_inputs(shape, torch.bfloat16, dev, 96)
+    gy = torch.randn(shape[:5], device=dev)
+    out = {
+        "flash_attn": {
+            "shape": f"q/k/v ({micro}, {seq}, {h}, {d}) bf16, causal",
+            "ms": cuda_ms(lambda: fa.flash_attention(
+                q, k, v, num_kv_heads=h, causal=True), reps=5),
+            "backward_plain_ms": cuda_ms(lambda: gops.flash_attention_bwd(
+                q, k, v, go, num_kv_heads=h, causal=True), reps=3,
+                warmup=1)},
+        "ssd_intra_chunk": {
+            "shape": f"x {shape[:5]} bf16, N {s.d_state}",
+            "ms": cuda_ms(lambda: kssd.ssd_intra_chunk(*args), reps=5),
+            "backward_plain_ms": cuda_ms(lambda: hops.ssd_intra_chunk_bwd(
+                *args, gy), reps=3, warmup=1)}}
+    for name, row in out.items():
+        log(f"  {name} at the training shape: {row}")
+    return out
+
+
+def check_resume_in_child() -> dict:
+    """``check_resume`` in a child process of this script that sets
+    ``CUBLAS_WORKSPACE_CONFIG`` (cuBLAS reads it once, when it starts), so
+    every other phase runs with PyTorch's default cuBLAS workspace.  The
+    child's log lines pass through; its last line is the result."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        RESUME_FLAG], env=env, capture_output=True,
+                       text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if r.returncode != 0:
+        log(r.stdout[-4000:])
+        raise RuntimeError(f"resume check failed ({r.returncode}):\n"
+                           f"{r.stderr[-8000:]}")
+    return json.loads(lines[-1])
+
+
+def check_resume(dev) -> dict:
+    """tests/test_checkpoint.py's resume check on the card at
+    reduced(zamba2_1_2b): 2 steps against 1 step, save, restore, 1 more,
+    bit for bit; then the CLI twice with the same flags, the second run
+    resuming from the first one's step-4 checkpoint and ending on its
+    loss.  Both under torch.use_deterministic_algorithms."""
+    cfg = reduced(get_config(TRAIN_ARCH))
+    b, s = TRAIN_SMALL_SHAPE
+    shape = ShapeSpec("t", s, b, "train")
+    opt = AdamWConfig(lr=TRAIN_LR)
+    step = make_train_step(cfg, opt)
+
+    def fresh():
+        lm = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        return lm, adamw_init(lm, opt)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        rk.reset_launch_counts()
+        pa, sa = fresh()
+        for i in range(2):
+            pa, sa, _ = step(pa, sa, make_batch(cfg, shape, i, device=dev))
+        counts = rk.launch_counts()
+        pb, sb = fresh()
+        pb, sb, _ = step(pb, sb, make_batch(cfg, shape, 0, device=dev))
+        with tempfile.TemporaryDirectory() as tmp:
+            save_checkpoint(tmp, 1, {"params": param_tree(pb), "opt": sb})
+            pc, sc = fresh()
+            restore_checkpoint(tmp, 1, {"params": param_tree(pc),
+                                        "opt": sc})     # in place
+        pc, sc, _ = step(pc, sc, make_batch(cfg, shape, 1, device=dev))
+        pairs = list(zip(tree_leaves([param_tree(pa), sa]),
+                         tree_leaves([param_tree(pc), sc])))
+        differ = sum(not torch.equal(x, y) for x, y in pairs)
+        log(f"  resume at {cfg.name}: {len(pairs)} leaves, {differ} differ "
+            f"(bit for bit); launches in 2 steps {counts}")
+        assert differ == 0 and counts["flash_attn"] > 0 and \
+            counts["ssd_intra_chunk"] > 0, (differ, counts)
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--arch", TRAIN_ARCH, "--smoke", "--device", dev.type,
+                    "--steps", "6",
+                    "--ckpt-dir", tmp, "--ckpt-every", "4",
+                    "--log-every", "1"]
+            first = launch_train.main(argv)
+            second = launch_train.main(argv)
+        log(f"  launch.train twice: first {first}, second {second}")
+        assert first["start"] == 0 and second["start"] == 4, (first, second)
+        assert all(first[k] == second[k] for k in ("loss", "grad_norm",
+                                                   "lr")), (first, second)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"leaves": len(pairs), "differ": differ, "cli_first": first,
+            "cli_second": second}
+
+
+def run_training(dev, cfg) -> dict:
+    """Phase 15: ``cfg`` (TRAIN_ARCH at full width and depth in the run of
+    ``main``) through
+    ``make_train_step``: ``TRAIN_STEPS`` steps of SyntheticLM data at
+    ``TRAIN_SEQ`` tokens a sequence, two microbatches of 2 a step and one
+    at the end; per step its time, tokens/s, loss, gradient norm, lr, G
+    and H launches by variant and peak memory; the gradient against the
+    plain versions' on one microbatch; G's and H's plain backward timed
+    alone; then the resume check and the CLI at the reduced config."""
+    layers = cfg.pattern_unit * cfg.num_units
+    n_attn = layers.count("A")
+    n_unit_m, n_tail_m = layers.count("M"), cfg.tail.count("M")
+    # Per microbatch: each unit's blocks forward and again in its
+    # recompute (remat "full"), the tail's once.
+    per_micro = {"flash_attn": 2 * n_attn,
+                 "ssd_intra_chunk": 2 * n_unit_m + n_tail_m}
+    params, n_params = init_lm(cfg, dev)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 5),
+                      total_steps=TRAIN_STEPS)
+    state = adamw_init(params, opt)
+    ds = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    steps = {a: make_train_step(cfg, opt, accum_steps=a)
+             for a in (TRAIN_ACCUM, 1)}
+    micro = TRAIN_BATCH // TRAIN_ACCUM
+    rows = []
+    for i in range(TRAIN_STEPS):
+        accum = TRAIN_ACCUM if i < TRAIN_STEPS - 1 else 1
+        b = micro * accum
+        batch = {k: torch.from_numpy(v[:b]).to(dev)
+                 for k, v in ds.batch(i).items()}
+        if i == 0:
+            loss0 = plain_xent(params, cfg, batch, micro)
+        rk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = steps[accum](params, state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = rk.launch_counts()
+        row = {"step": i, "accum": accum, "batch": b, "ms": ms,
+               "tokens_per_s": b * TRAIN_SEQ / ms * 1e3,
+               **{k: float(v) for k, v in m.items()},
+               "launches": counts,
+               "flash_attn_variants": dict(fa.launches_by_variant),
+               "ssd_intra_chunk_variants": dict(kssd.launches_by_variant),
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        log(f"  step {i}{' (first: warm-up)' if i == 0 else ''}: accum "
+            f"{accum} x {micro} x {TRAIN_SEQ}, {ms:.3f} ms, "
+            f"{row['tokens_per_s']:.1f} tok/s, loss {row['loss']:.6f}, "
+            f"grad_norm {row['grad_norm']:.6f}, lr {row['lr']:.3g}, "
+            f"launches {counts}, G {row['flash_attn_variants']}, H "
+            f"{row['ssd_intra_chunk_variants']}, peak "
+            f"{row['peak_bytes'] / 2**30:.2f} GiB")
+        assert math.isfinite(row["loss"]) and \
+            math.isfinite(row["grad_norm"]), row
+        for name, n in per_micro.items():
+            assert counts[name] == accum * n, (name, counts)
+        assert row["flash_attn_variants"]["wgmma"] == counts["flash_attn"]
+        assert row["ssd_intra_chunk_variants"]["wgmma"] == \
+            counts["ssd_intra_chunk"]
+        assert sum(counts.values()) == accum * sum(per_micro.values())
+        rows.append(row)
+    rel0 = abs(rows[0]["loss"] - loss0) / loss0
+    log(f"  step 0 loss {rows[0]['loss']:.6f}; plain cross-entropy over "
+        f"forward_train's logits {loss0:.6f} (rel {rel0:.3g}, limit "
+        f"{TRAIN_LOSS0_REL}; ln V is {math.log(cfg.vocab_size):.4f})")
+    assert rel0 < TRAIN_LOSS0_REL, (rows[0]["loss"], loss0)
+    del state, m
+    free_card()
+    micros = [{k: torch.from_numpy(v[j:j + micro]).to(dev)
+               for k, v in ds.batch(0).items()} for j in (0, micro)]
+    grads = check_train_grads(params, cfg, micros, per_micro["flash_attn"],
+                              per_micro["ssd_intra_chunk"])
+    del params, micros
+    free_card()
+    times = time_train_backward(dev, micro, TRAIN_SEQ, cfg)
+    steady = [r for r in rows[1:] if r["accum"] == TRAIN_ACCUM]
+    step_ms = float(np.median([r["ms"] for r in steady]))
+    bwd_ms = TRAIN_ACCUM * (
+        n_attn * times["flash_attn"]["backward_plain_ms"]
+        + (n_unit_m + n_tail_m) * times["ssd_intra_chunk"][
+            "backward_plain_ms"])
+    log(f"  steady step ({TRAIN_ACCUM} x {micro} x {TRAIN_SEQ}): median "
+        f"{step_ms:.3f} ms; G's and H's plain backward about {bwd_ms:.3f} "
+        f"ms of it ({bwd_ms / step_ms:.3f})")
+    free_card()
+    resume = check_resume_in_child()
+    return {"arch": cfg.name, "params": n_params, "seq": TRAIN_SEQ,
+            "steps": rows, "loss0_plain": loss0, "steady_step_ms": step_ms,
+            "launches": steady[-1]["launches"], "grad_check": grads,
+            "kernel_times": times, "plain_backward_ms": bwd_ms,
+            "plain_backward_share": bwd_ms / step_ms, "resume": resume}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
+    if sys.argv[1:] == [RESUME_FLAG]:       # phase 15's child process
+        print(json.dumps(check_resume(dev)))
+        return 0
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"[1] setup: {smi} | {kind} | torch {torch.__version__} "
@@ -2635,6 +3145,15 @@ def main() -> int:
     free_card()
     encdec = run_encdec_serving(dev)
 
+    log_phase(f"[15] main path: training {TRAIN_ARCH} at full width, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step")
+    free_card()
+    cfg = get_config(TRAIN_ARCH)
+    assert (cfg.num_layers, cfg.d_model, cfg.dtype, cfg.remat) == \
+        (38, 2048, "bfloat16", "full"), cfg
+    training = run_training(dev, cfg)
+    free_card()
+
     log_phase("[6] kernel times at the main paths' shapes")
     times = time_kernels(dev, main_path["schedule"])
     other_times = time_group_kernels(dev)
@@ -2662,7 +3181,8 @@ def main() -> int:
                    f"{LM_BATCHES[0][2]}"]["launches"]
                   for impl in MOE_ENGINES},
                "encdec_generate": next(iter(encdec["served"].values()))[
-                   "launches"]}
+                   "launches"],
+               "train_step": training["launches"]}
     path_of = {"seg_agg": "groupby_gpu_only_partitioned",
                "hash_bucket": "groupby_gpu_only_partitioned",
                "radix_hist": "groupby_gpu_only_partitioned",
@@ -2682,6 +3202,7 @@ def main() -> int:
         if name in ("flash_attn", "ssd_intra_chunk"):
             row["launches_by_variant"] = next(iter(lm["batches"].values()))[
                 f"{name}_variants"]
+            row["train"] = training["kernel_times"][name]
         record.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
@@ -2711,6 +3232,11 @@ def main() -> int:
             f"decode {r['decode_ms_per_step']:.3f} ms/step, "
             f"{r['tokens_per_s']:.1f} tok/s, peak "
             f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    for r in training["steps"]:
+        log(f"  train {training['arch']} step {r['step']} ({r['accum']} x "
+            f"{r['batch'] // r['accum']} x {training['seq']}): {r['ms']:.3f}"
+            f" ms, {r['tokens_per_s']:.1f} tok/s, loss {r['loss']:.4f}, "
+            f"peak {r['peak_bytes'] / 2**30:.2f} GiB")
     log(f"  whole script {time.perf_counter() - T_START:.1f} s")
     log(smi)
     print(json.dumps({"kernels": record}))

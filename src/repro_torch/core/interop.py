@@ -8,7 +8,9 @@ JAX package's pytree leaves (``jax.tree.leaves``) for the same class.
 The LM's weights and serving caches cross as the JAX package's trees of
 NumPy arrays (``unit`` stacked along its leading axis):
 ``lm_params_from_numpy`` and ``lm_cache_from_numpy`` fill the port's
-modules and caches.  bfloat16
+modules and caches, ``lm_params_to_numpy`` gives the port's weights
+back in that layout, and ``adamw_state_from_numpy`` carries the JAX
+package's optimizer state into the port's.  bfloat16
 leaves cross as float32 arrays (lossless) and are cast back to the
 spec's dtype, which keeps ``ml_dtypes`` out of the port.  Only NumPy
 crosses, so this module never imports JAX.
@@ -102,3 +104,63 @@ def lm_cache_from_numpy(cfg, tree: dict, device=None) -> dict:
                         device)
     out["unit"] = tfm._unstack(out["unit"], cfg.num_units)
     return out
+
+
+def stack_units(tree: dict) -> dict:
+    """A tree of the port's model layout (``unit`` a list of units) in the
+    JAX package's (``unit`` stacked along a leading axis), NumPy float32
+    where a leaf is floating."""
+    from .tree import tree_map
+
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    def stacked(units):
+        return tree_map(lambda *xs: np.stack(xs), *units)
+
+    out = tree_map(conv, tree)
+    out["unit"] = stacked(out["unit"])
+    if "encoder" in out:
+        out["encoder"]["unit"] = stacked(out["encoder"]["unit"])
+    return out
+
+
+def lm_params_to_numpy(cfg, lm) -> dict:
+    """The port's ``LM`` as the JAX package's parameter tree of NumPy
+    arrays (``unit`` stacked, bf16 leaves as float32): the inverse of
+    ``lm_params_from_numpy``."""
+    from .tree import param_tree
+
+    return stack_units(param_tree(lm))
+
+
+def _unstacked_like(cfg, tree: dict, dtype, device) -> dict:
+    """The JAX package's parameter-shaped ``tree`` as the port's layout,
+    tensors of ``dtype`` on ``device``."""
+    from ..models import transformer as tfm
+    from .tree import tree_map
+
+    out = tree_map(lambda a: torch.from_numpy(
+        np.array(a, dtype=np.float32)).to(device, dtype), tree)
+    out["unit"] = tfm._unstack(out["unit"], cfg.num_units)
+    if "encoder" in out:
+        out["encoder"]["unit"] = tfm._unstack(out["encoder"]["unit"],
+                                              cfg.encoder.num_layers)
+    return out
+
+
+def adamw_state_from_numpy(cfg, state: dict, state_dtype: str = "float32",
+                           device=None) -> dict:
+    """The port's AdamW state from the JAX package's (``jax.tree.map(
+    np.asarray, opt_state)``, bf16 moments as float32): moments in
+    ``state_dtype`` in the port's layout, the step an int32 tensor, on
+    ``device`` (the card unless told otherwise)."""
+    from ..models.params import torch_dtype
+
+    device = resolve_device(device)
+    dt = torch_dtype(state_dtype)
+    return {"mu": _unstacked_like(cfg, state["mu"], dt, device),
+            "nu": _unstacked_like(cfg, state["nu"], dt, device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

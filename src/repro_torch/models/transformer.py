@@ -8,10 +8,16 @@ package's names, nesting and layouts (``unit`` is a list of units instead
 of one tree stacked along a leading axis), so weights carried across
 are copies.
 
-Three entry modes, all forward only (no autograd):
-  * ``forward_train`` -- full-sequence causal, returns (logits, aux_loss)
+Three entry modes:
+  * ``forward_train`` -- full-sequence causal, returns (logits, aux_loss);
+    it and ``forward_hidden`` run under autograd where the parameters
+    require gradients (``train/step.py`` sets them so)
   * ``prefill``       -- same math, also returns the serving cache
   * ``decode_step``   -- one token against the cache (KV / SSM state)
+The last two never record a graph.  Under autograd each unit is
+rematerialised as ``cfg.remat`` says (``"full"``, ``"dots"`` or
+``"none"``), as the JAX package checkpoints its scanned unit body; the
+tail is not.
 
 An encoder-decoder config (``cfg.encoder``) first runs ``_encode`` over
 its stub frame embeddings (B, F, d_model): a stack of non-causal ``D``
@@ -21,8 +27,11 @@ keeps in the cache as ``ck`` / ``cv``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..layers import attention as attn
@@ -104,8 +113,9 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 class Params(nn.Module):
     """A tree of tensors under the JAX package's names: leaves are
-    parameters (frozen: the port serves), inner dicts submodules.  Read it
-    like the JAX dict: ``params["wq"]``, ``"bq" in params``."""
+    parameters (frozen until a trainer calls ``requires_grad_()``), inner
+    dicts submodules.  Read it like the JAX dict: ``params["wq"]``,
+    ``"bq" in params``."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -311,25 +321,62 @@ def _block_fwd(char: str, params, cfg: ModelConfig, h: torch.Tensor,
 # Stacks and entry points.
 # --------------------------------------------------------------------------
 
+def _mm_saveable(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of plain matrix products
+    (JAX's dots with no batch dims), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _unit_fwd(unit, cfg: ModelConfig, pattern_unit: str, mode: str, h,
+              positions, unit_cache, cache_len, enc_out):
+    """One unit's blocks in order: (h, aux of its blocks, its new cache)."""
+    aux = 0.0
+    new_unit = {}
+    for j, c in enumerate(pattern_unit):
+        key = f"{j}{c}"
+        h, new_unit[key], a = unit[key](
+            cfg, h, positions, mode,
+            unit_cache[key] if unit_cache is not None else None,
+            cache_len, enc_out)
+        aux = aux + a
+    return h, aux, new_unit
+
+
+def _remat(cfg: ModelConfig, fn, records: bool):
+    """``fn`` checkpointed as ``cfg.remat`` says where autograd
+    ``records`` (elsewhere a checkpoint only costs host time)."""
+    if cfg.remat == "none" or not records:
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _mm_saveable))
+    raise ValueError(f"remat {cfg.remat!r}: none, full or dots")
+
+
 def _run_stack(params: Stack, cfg: ModelConfig, h, positions, mode: str,
                cache, cache_len, enc_out, pattern_unit: str,
                want_cache: bool):
-    """Every unit of ``pattern_unit`` blocks in order, then the tail where
-    ``params`` has one.  Returns (h, aux, new_cache): aux sums the blocks'
-    MoE losses (a float32 tensor, or 0.0 where no block is ``E``: a Python
+    """Every unit of ``pattern_unit`` blocks in order, each checkpointed
+    as ``cfg.remat`` says under autograd, then the tail where ``params``
+    has one.  Returns (h, aux, new_cache): aux sums the blocks' MoE
+    losses (a float32 tensor, or 0.0 where no block is ``E``: a Python
     float adds no launch per block)."""
     aux = 0.0
     new_units = []
+    records = torch.is_grad_enabled() and (
+        h.requires_grad or any(p.requires_grad for p in params.parameters()))
+    unit_fwd = _remat(cfg, _unit_fwd, records)
     for i, unit in enumerate(params.unit):
         unit_cache = cache["unit"][i] if cache is not None else None
-        new_unit = {}
-        for j, c in enumerate(pattern_unit):
-            key = f"{j}{c}"
-            h, new_unit[key], a = unit[key](
-                cfg, h, positions, mode,
-                unit_cache[key] if unit_cache is not None else None,
-                cache_len, enc_out)
-            aux = aux + a
+        h, a, new_unit = unit_fwd(unit, cfg, pattern_unit, mode, h,
+                                  positions, unit_cache, cache_len, enc_out)
+        aux = aux + a
         new_units.append(new_unit)
     new_cache = {"unit": new_units} if want_cache else {}
     if "tail" in params:
@@ -372,24 +419,24 @@ def _enc_out(params: LM, cfg: ModelConfig, enc_frames):
     return _encode(params, cfg, enc_frames.to(torch_dtype(cfg.dtype)))
 
 
-@torch.no_grad()
 def forward_hidden(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                    enc_frames: torch.Tensor | None = None):
-    """tokens: (B, S) -> (final hidden states (B, S, d), aux_loss)."""
+    """tokens: (B, S) -> (final hidden states (B, S, d), aux_loss: a
+    float32 scalar that carries its gradient)."""
     b, s = tokens.shape
     h = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
     enc_out = _enc_out(params, cfg, enc_frames)
     h, aux, _ = _run_stack(params, cfg, h, _positions(b, s, tokens.device),
                            "train", None, None, enc_out, cfg.pattern_unit,
                            want_cache=False)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=tokens.device)
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return rmsnorm(h, params["final_norm"], cfg.rms_eps), aux
 
 
-@torch.no_grad()
 def forward_train(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                   enc_frames: torch.Tensor | None = None):
-    """tokens: (B, S) -> (logits (B, S, V), aux_loss).  Forward only."""
+    """tokens: (B, S) -> (logits (B, S, V), aux_loss)."""
     h, aux = forward_hidden(params, cfg, tokens, enc_frames)
     return logits_fn(params["embed"], h, cfg.vocab_size), aux
 

@@ -367,7 +367,9 @@ GRID_G = [(2, 256, 256, 4, 2, 64, True), (1, 128, 384, 8, 8, 128, False),
           # of 224, 4 and 1 queries over them, the decoder's own prefill.
           (2, 1500, 1500, 20, 20, 64, False), (2, 224, 1500, 20, 20, 64, False),
           (8, 4, 1500, 20, 20, 64, False), (1, 1, 1500, 20, 20, 64, False),
-          (8, 4, 4, 20, 20, 64, True), (1, 1500, 1500, 20, 20, 64, False)]
+          (8, 4, 4, 20, 20, 64, True), (1, 1500, 1500, 20, 20, 64, False),
+          # zamba2_1_2b's training microbatch: key tiles past 2048.
+          (2, 4096, 4096, 32, 32, 64, True)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-5),
@@ -876,3 +878,103 @@ def test_moe_sorted_on_card_matches_cpu(dev, monkeypatch, impl,
     assert torch.equal(got[5] != 0, want[5] != 0)           # kept slots
     for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]):
         assert torch.allclose(g, w, rtol=2e-5, atol=2e-5)
+
+
+# -- training: G's and H's autograd Functions, and the train step -------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", GRID_G)
+def test_flash_attention_function_grads_match_plain_backward(
+        dev, b, sq, sk, h, kv, d, causal, dtype, tol):
+    """G forward (the kernel) with the blockwise plain backward against
+    autograd through the whole plain version: dq, dk, dv within ``tol``
+    in RMS(diff) / RMS; the backward launches no kernel."""
+    from repro_torch.kernels.flash_attn import ops as gops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(sq + d + 1)
+    ins = [torch.randn(b, s, n, d, generator=g, device=dev).to(dtype)
+           for s, n in ((sq, h), (sk, kv), (sk, kv))]
+    go = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+    got = [t.clone().requires_grad_() for t in ins]
+    n0 = fa.launches
+    gops.flash_attention(*got, num_kv_heads=kv, causal=causal).backward(go)
+    assert fa.launches == n0 + 1
+    want = [t.clone().requires_grad_() for t in ins]
+    fa.flash_attention_plain(*want, num_kv_heads=kv,
+                             causal=causal).backward(go)
+    for x, y in zip(got, want):
+        assert x.grad.dtype == dtype and torch.isfinite(x.grad).all()
+        rel = float((x.grad.float() - y.grad.float()).norm()
+                    / y.grad.float().norm().clamp_min(1e-30))
+        assert rel < tol, rel
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 1e-6)])
+@pytest.mark.parametrize("bs,nc,q,h,p,n", GRID_H)
+def test_ssd_intra_chunk_function_grads_match_plain_backward(
+        dev, bs, nc, q, h, p, n, dtype, tol):
+    """H forward (the kernel) with its plain backward against autograd
+    through the plain version: the gradients of all five inputs (the
+    backward recomputes that same version, so they agree to rounding)."""
+    from repro_torch.kernels.ssd import ops as hops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(q + n + 1)
+    ins = [torch.randn(bs, nc, q, h, p, generator=g, device=dev).to(dtype),
+           torch.rand(bs, nc, q, h, generator=g, device=dev) * 0.19 + 0.01,
+           torch.randn(bs, nc, q, n, generator=g, device=dev).to(dtype),
+           torch.randn(bs, nc, q, n, generator=g, device=dev).to(dtype),
+           -torch.exp(torch.randn(h, generator=g, device=dev) * 0.3)]
+    gy = torch.randn(bs, nc, q, h, p, generator=g, device=dev)
+    got = [t.clone().requires_grad_() for t in ins]
+    n0 = kssd.launches
+    hops.ssd_intra_chunk(*got).backward(gy)
+    assert kssd.launches == n0 + 1
+    want = [t.clone().requires_grad_() for t in ins]
+    kssd.ssd_intra_chunk_plain(*want).backward(gy)
+    for x, y in zip(got, want):
+        assert x.grad.dtype == x.dtype and torch.isfinite(x.grad).all()
+        rel = float((x.grad.float() - y.grad.float()).norm()
+                    / y.grad.float().norm().clamp_min(1e-30))
+        assert rel < tol, rel
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """Reduced Zamba2 in float32 under remat "full", two microbatches a
+    step: three steps of ``make_train_step`` on the card (G and H
+    kernels, each unit's twice) against the same on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        tconfigs.reduced(tconfigs.get_config("zamba2_1_2b")),
+        dtype="float32", remat="full")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, opt, accum_steps=2)
+    cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    card = tfm.init_params(cfg, torch.Generator().manual_seed(0)).to(dev)
+    sc, sg = adamw_init(cpu, opt), adamw_init(card, opt)
+    shape = ShapeSpec("t", 64, 4, "train")
+    for i in range(3):
+        cpu, sc, mc = step(cpu, sc, make_batch(cfg, shape, i, device="cpu"))
+        reset_launch_counts()
+        card, sg, mg = step(card, sg, make_batch(cfg, shape, i, device=dev))
+        counts = launch_counts()
+        assert counts["flash_attn"] == 2 * 2 and \
+            counts["ssd_intra_chunk"] == 2 * (2 * 5 + 2), counts
+        for k in ("loss", "grad_norm", "lr"):
+            assert abs(float(mg[k]) - float(mc[k])) <= \
+                1e-4 * abs(float(mc[k])), (i, k)
+        for a, b in zip(cpu.parameters(), card.parameters()):
+            rel = float((b.detach().cpu() - a.detach()).norm()
+                        / a.detach().norm().clamp_min(1e-30))
+            assert rel < 1e-3, (i, rel)

@@ -50,7 +50,14 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.allocator", "repro_torch.core.divergence",
             "repro_torch.queries", "repro_torch.queries.plan",
             "repro_torch.queries.optimize",
-            "repro_torch.queries.executor"} <= set(mods)
+            "repro_torch.queries.executor",
+            "repro_torch.core.tree", "repro_torch.core.interop",
+            "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.train", "repro_torch.train.step",
+            "repro_torch.train.compress", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.store",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
