@@ -111,6 +111,27 @@ just after, and verifies each against a NumPy oracle:
   ``launch.train.main`` run twice with the same flags, the second
   resuming from the first's checkpoint and ending on its loss.
 
+* the mesh (phase 16): a one-rank NCCL group and ``make_host_mesh()``,
+  (1, 1) on the card, destroyed at the end of the phase.  zamba2_1_2b at
+  full width and depth (bf16, seed 0) trained for three steps of 2 x 2 x
+  4096 through ``make_train_step(cfg, mesh, TRAIN_RULES, opt,
+  accum_steps=2)`` (parameters, moments and batch as DTensors), step 0's
+  loss and gradient norm against phase 15's mesh-less step 0 within
+  1e-6 relative, G 24 and H 124 launches a step, all ``wgmma`` (through
+  ``local_map``), the collectives DTensor issued counted on the last
+  step; prefill 4 x 2048 and 8 decode steps through ``make_prefill_step``
+  / ``make_decode_step`` with SERVE_RULES against the mesh-less path on
+  the same weights (0.06, as tests/test_archs.py), each timed;
+  ``ef_int8_psum`` over the pod axis of a (1, 1, 1) mesh on one
+  microbatch's 1.29 B-element gradient, bit for bit against the plain
+  quantizer, timed; a checkpoint of reduced(zamba2_1_2b) saved without a
+  mesh and restored onto the mesh with ``shardings_tree``, bit for bit;
+  and, in a child process on the host's CPU from the phase's start, the
+  dry-run of zamba2_1_2b x train_4k on the fake 16 x 16 mesh, whose
+  report line is printed (its failure fails the phase).
+  ``python3 chip_smoke.py --phase16`` runs setup, the build and this
+  phase alone.
+
 Kernel F (partitioned probe) is held against its plain version first,
 like A-E, on sorted and on permuted rows (K from 1 to 2^20) and on
 ``build_partitioned_table``'s rows of negative build keys, and again at
@@ -1320,8 +1341,8 @@ def time_steps(cfg, params, prompts: torch.Tensor, new: int, dev,
     the encoder included) and the ``new - 1`` decode steps of a generate,
     each timed alone with CUDA events, and the decode steps' launches."""
     batch, plen = prompts.shape
-    prefill = make_prefill_step(cfg)
-    step = make_decode_step(cfg)
+    prefill = make_prefill_step(cfg, None, None)
+    step = make_decode_step(cfg, None, None)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
     plog, cache = prefill(params, {"tokens": prompts, "enc_frames": frames})
@@ -1578,7 +1599,7 @@ def run_moe_serving(dev) -> dict:
                 if bi == 0 and impl == "sorted":  # E's pids, every call
                     pids = []
                     stack.enter_context(Spy(
-                        cpart, "radix_hist",
+                        cpart, "radix_hist_op",
                         lambda a, kw, o: pids.append(a[0].clone())))
                 runs[impl] = serve_moe(ecfg, params, prompts, new, dev,
                                        n_moe=n, n_attn=n, variant="wgmma")
@@ -1671,8 +1692,8 @@ def encdec_frames(cfg, batch: int, rng, dev) -> torch.Tensor:
 def cross_kv_kept(cfg, params, prompts, frames, max_seq: int) -> bool:
     """Whether ``grow_cache`` hands on the prefill's own ``ck`` / ``cv``
     tensors in every decoder block (no copy, not zeros)."""
-    _, cache = make_prefill_step(cfg)(params, {"tokens": prompts,
-                                               "enc_frames": frames})
+    _, cache = make_prefill_step(cfg, None, None)(
+        params, {"tokens": prompts, "enc_frames": frames})
     grown = grow_cache(cache, max_seq)
     return all(grown["unit"][i][key][name] is blk[name]
                for i, unit in enumerate(cache["unit"])
@@ -2939,7 +2960,7 @@ def check_resume(dev) -> dict:
     b, s = TRAIN_SMALL_SHAPE
     shape = ShapeSpec("t", s, b, "train")
     opt = AdamWConfig(lr=TRAIN_LR)
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, None, None, opt)
 
     def fresh():
         lm = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -3005,7 +3026,7 @@ def run_training(dev, cfg) -> dict:
                       total_steps=TRAIN_STEPS)
     state = adamw_init(params, opt)
     ds = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
-    steps = {a: make_train_step(cfg, opt, accum_steps=a)
+    steps = {a: make_train_step(cfg, None, None, opt, accum_steps=a)
              for a in (TRAIN_ACCUM, 1)}
     micro = TRAIN_BATCH // TRAIN_ACCUM
     rows = []
@@ -3079,6 +3100,310 @@ def run_training(dev, cfg) -> dict:
             "plain_backward_share": bwd_ms / step_ms, "resume": resume}
 
 
+# Phase 16: the mesh.  Zamba2 trained and served through a (1, 1)
+# DeviceMesh of one NCCL rank, against the mesh-less path on the same
+# weights and data.  On one rank every placement is whole, so the same
+# ops run on the same tensors: bit for bit is expected, and the limits
+# are phase 15's float32 loss limit and tests/test_archs.py's 0.06.
+MESH_STEPS = 3
+MESH_TRAIN_REL = 1e-6
+MESH_SERVE_BATCH = (4, 2048, 8)     # prompts x tokens, decode steps
+MESH_DRYRUN = ("zamba2_1_2b", "train_4k")
+MESH_FLAG = "--phase16"             # setup, the build and phase 16 alone
+
+
+def start_dryrun_child() -> subprocess.Popen:
+    """``python -m repro_torch.launch.dryrun`` for ``MESH_DRYRUN`` on the
+    fake 16 x 16 mesh, on the host's CPU (one thread) beside the card's
+    work, which it does not touch."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    arch, shape = MESH_DRYRUN
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=str(Path(__file__).resolve().parent))
+
+
+def finish_dryrun_child(proc: subprocess.Popen) -> dict:
+    out, err = proc.communicate(timeout=600)
+    for line in out.strip().splitlines():
+        log(f"  dry-run: {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"dry-run failed ({proc.returncode}):\n"
+                           f"{err[-8000:]}")
+    ok = [line for line in out.splitlines() if line.startswith("OK ")]
+    assert len(ok) == 1, out
+    arch, shape = MESH_DRYRUN
+    path = (Path(__file__).resolve().parent / "reports" / "dryrun_torch"
+            / f"{arch}__{shape}__16x16.json")
+    rep = json.loads(path.read_text())
+    return {"line": ok[0], "report": rep}
+
+
+def mesh_train(dev, cfg, mesh, ref0: dict | None) -> dict:
+    """16 (a): ``MESH_STEPS`` steps of phase 15's data through
+    ``make_train_step(cfg, mesh, TRAIN_RULES, opt, accum_steps=2)`` from
+    seed 0's weights; step 0 against the mesh-less step 0 (``ref0``, or a
+    mesh-less step 0 run here first).  The last step runs under
+    CommDebugMode, whose collectives and the redistributions ``shard``
+    made are counted."""
+    import repro_torch.distributed.sharding as dsh
+    from repro_torch.distributed import TRAIN_RULES
+    from repro_torch.launch.dryrun import comm_counter
+
+    layers = cfg.pattern_unit * cfg.num_units
+    per_step = {"flash_attn": TRAIN_ACCUM * 2 * layers.count("A"),
+                "ssd_intra_chunk": TRAIN_ACCUM * (2 * layers.count("M")
+                                                  + cfg.tail.count("M"))}
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 5),
+                      total_steps=TRAIN_STEPS)
+    ds = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    batch = lambda i: {k: torch.from_numpy(v).to(dev)
+                       for k, v in ds.batch(i).items()}
+    if ref0 is None:
+        params, _ = init_lm(cfg, dev)
+        _, _, m = make_train_step(cfg, None, None, opt,
+                                  accum_steps=TRAIN_ACCUM)(
+            params, adamw_init(params, opt), batch(0))
+        ref0 = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        del params, m
+        free_card()
+    params, _ = init_lm(cfg, dev)
+    state = adamw_init(params, opt)
+    step = make_train_step(cfg, mesh, TRAIN_RULES, opt,
+                           accum_steps=TRAIN_ACCUM)
+    rows = []
+    for i in range(MESH_STEPS):
+        b = batch(i)
+        comm = comm_counter() if i == MESH_STEPS - 1 else \
+            contextlib.nullcontext()
+        rk.reset_launch_counts()
+        dsh.redistributes = 0
+        dsh.view_fallbacks = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with comm:
+            params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = rk.launch_counts()
+        row = {"step": i, "ms": ms, **{k: float(v) for k, v in m.items()},
+               "launches": counts,
+               "flash_attn_variants": dict(fa.launches_by_variant),
+               "ssd_intra_chunk_variants": dict(kssd.launches_by_variant),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "shard_redistributes": dsh.redistributes,
+               "view_fallbacks": dsh.view_fallbacks}
+        if i == MESH_STEPS - 1:
+            row["comm_debug_mode"] = {
+                "total": comm.get_total_counts(),
+                "by_op": {str(k): v for k, v in
+                          comm.get_comm_counts().items()}}
+        log(f"  mesh step {i}{' (under CommDebugMode)' if 'comm_debug_mode' in row else ''}: "
+            f"{ms:.3f} ms, loss {row['loss']:.6f}, grad_norm "
+            f"{row['grad_norm']:.6f}, G {row['flash_attn_variants']}, H "
+            f"{row['ssd_intra_chunk_variants']}, peak "
+            f"{row['peak_bytes'] / 2**30:.2f} GiB, shard redistributes "
+            f"{row['shard_redistributes']}, view fallbacks "
+            f"{row['view_fallbacks']}"
+            + (f", collectives {row['comm_debug_mode']}"
+               if "comm_debug_mode" in row else ""))
+        for name, n in per_step.items():
+            assert counts[name] == n, (name, counts)
+        assert row["flash_attn_variants"]["wgmma"] == counts["flash_attn"]
+        assert row["ssd_intra_chunk_variants"]["wgmma"] == \
+            counts["ssd_intra_chunk"]
+        assert row["view_fallbacks"] == 0, row["view_fallbacks"]
+        rows.append(row)
+    # Every parameter a DTensor on the mesh, placed by the rules.
+    assert all(dsh.is_dtensor(p) for p in params.parameters())
+    rel = {k: abs(rows[0][k] - ref0[k]) / abs(ref0[k])
+           for k in ("loss", "grad_norm")}
+    log(f"  step 0 on the mesh against the mesh-less step 0: loss "
+        f"{rows[0]['loss']!r} vs {ref0['loss']!r}, grad_norm "
+        f"{rows[0]['grad_norm']!r} vs {ref0['grad_norm']!r}: rel {rel} "
+        f"(limit {MESH_TRAIN_REL}; bit for bit: "
+        f"{all(v == 0 for v in rel.values())})")
+    assert max(rel.values()) <= MESH_TRAIN_REL, rel
+    del params, state, m
+    free_card()
+    return {"steps": rows, "ref0": ref0, "rel0": rel,
+            "launches_per_step": per_step,
+            "steady_step_ms": rows[1]["ms"]}
+
+
+def mesh_serve(dev, cfg, mesh) -> dict:
+    """16 (b): prefill and ``new`` decode steps, mesh-less and then
+    through ``make_prefill_step`` / ``make_decode_step`` on ``mesh`` with
+    SERVE_RULES, on the same weights and prompts; logits held against
+    each other, each decode step timed with CUDA events."""
+    from repro_torch.distributed import SERVE_RULES
+
+    batch, plen, new = MESH_SERVE_BATCH
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, plen), dtype=np.int32)).to(dev)
+    from repro_torch.train.step import place_lm
+
+    params, _ = init_lm(cfg, dev)
+    runs = {}
+    for name, m, r in (("mesh-less", None, None),
+                       ("mesh", mesh, SERVE_RULES)):
+        if m is not None:       # placed before the clock starts
+            place_lm(params, cfg, m, r)
+        prefill = make_prefill_step(cfg, m, r)
+        step = make_decode_step(cfg, m, r)
+        full = (lambda t: t.full_tensor()) if m is not None else \
+            (lambda t: t)
+        rk.reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        logits, cache = prefill(params, {"tokens": prompts})
+        ev[1].record()
+        cache = grow_cache(cache, plen + new, m, r)
+        seen = [full(logits)]
+        tok = torch.argmax(seen[0], -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        prefill_counts = rk.launch_counts()
+        ev[2].record()
+        for n in range(plen, plen + new):
+            tok, logits, cache = step(params, cache, tok, n)
+            tok = full(tok)
+            seen.append(full(logits))
+        ev[3].record()
+        ev[3].synchronize()
+        runs[name] = {"prefill_ms": ev[0].elapsed_time(ev[1]),
+                      "decode_ms_per_step": ev[2].elapsed_time(ev[3]) / new,
+                      "prefill_launches": prefill_counts,
+                      "logits": torch.stack(seen, 1)}
+    rel, agree = logits_diff(runs["mesh"]["logits"],
+                             runs["mesh-less"]["logits"], cfg.vocab_size)
+    same = torch.equal(runs["mesh"]["logits"], runs["mesh-less"]["logits"])
+    for name, r in runs.items():
+        log(f"  {name} {batch} x {plen} + {new}: prefill "
+            f"{r['prefill_ms']:.3f} ms, decode {r['decode_ms_per_step']:.3f}"
+            f" ms/step, prefill launches {r['prefill_launches']}")
+        del r["logits"]
+    log(f"  mesh logits against mesh-less: rel {rel:.3g} (limit "
+        f"{LM_REL_LIMIT}), argmax agree {agree:.4f}, bit for bit {same}")
+    assert rel < LM_REL_LIMIT, rel
+    assert runs["mesh"]["prefill_launches"] == \
+        runs["mesh-less"]["prefill_launches"], runs
+    del params, cache
+    free_card()
+    return {"runs": runs, "rel": rel, "agree": agree, "bit_for_bit": same}
+
+
+def mesh_compress(dev, cfg) -> dict:
+    """16 (c): ``ef_int8_psum`` over the "pod" axis of a (1, 1, 1) mesh
+    on one microbatch's full-width gradient: on one rank the sum is the
+    dequantized codes and the residual g - deq (rounded once, as the JAX
+    package's fused multiply-add), bit for bit against the plain
+    quantizer."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.train.compress import (_quant_int8, ef_int8_psum,
+                                            residual_of)
+
+    mesh3 = make_mesh_compat((1, 1, 1), ("pod", "data", "model"))
+    params, _ = init_lm(cfg, dev)
+    params.requires_grad_(True)
+    ds = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    mb = {k: torch.from_numpy(v[:TRAIN_BATCH // TRAIN_ACCUM]).to(dev)
+          for k, v in ds.batch(0).items()}
+    _, grads = loss_and_grads(params, cfg, mb,
+                              tree_leaves(param_tree(params)))
+    del params
+    free_card()
+    res = [torch.zeros(g.shape, dtype=torch.float32, device=dev)
+           for g in grads]
+    n_el = sum(g.numel() for g in grads)
+    times = []
+    for _ in range(2):      # the first call also sets up the pod group
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summed, new_res = ef_int8_psum(grads, res, "pod", mesh=mesh3)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    first_ms, ms = times
+    differ = 0
+    for g, s_, r in zip(grads, summed, new_res):
+        q, sc = _quant_int8(g.float())
+        deq = q.float() * sc
+        differ += (not torch.equal(s_, deq.to(g.dtype))) + \
+            (not torch.equal(r, residual_of(g.float(), q, sc)))
+    log(f"  ef_int8_psum over pod of (1, 1, 1): {len(grads)} leaves, "
+        f"{n_el} elements, {ms:.3f} ms (first call, with the group's "
+        f"setup, {first_ms:.3f}); leaves that differ from the plain "
+        f"quantizer {differ} (bit for bit)")
+    assert differ == 0
+    n_leaves = len(grads)
+    del grads, res, summed, new_res
+    free_card()
+    return {"leaves": n_leaves, "elements": n_el, "ms": ms,
+            "first_ms": first_ms, "differ": differ}
+
+
+def mesh_restore(dev, mesh) -> dict:
+    """16 (d): a checkpoint of reduced(zamba2_1_2b) saved without a mesh,
+    restored with ``shardings_tree`` onto ``mesh`` by TRAIN_RULES: every
+    leaf a DTensor holding the saved values bit for bit."""
+    from repro_torch.distributed import TRAIN_RULES
+    from repro_torch.models.params import shardings
+
+    cfg = reduced(get_config(TRAIN_ARCH))
+    lm = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    saved = param_tree(lm)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, 1, saved)
+        like = param_tree(tfm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(1)))
+        sh = shardings(tfm.lm_specs(cfg), mesh, TRAIN_RULES)
+        got = restore_checkpoint(tmp, 1, like, shardings_tree=sh)
+    pairs = list(zip(tree_leaves(saved), tree_leaves(got)))
+    differ = sum(not torch.equal(a, b.full_tensor()) for a, b in pairs)
+    log(f"  elastic restore of {cfg.name} onto {tuple(mesh.shape)}: "
+        f"{len(pairs)} leaves, all DTensors "
+        f"{all(type(b).__name__ == 'DTensor' for _, b in pairs)}, "
+        f"{differ} differ (bit for bit)")
+    assert differ == 0 and all(type(b).__name__ == "DTensor"
+                               for _, b in pairs)
+    return {"leaves": len(pairs), "differ": differ}
+
+
+def run_mesh(dev, ref0: dict | None, decode_ref_ms: float | None) -> dict:
+    """Phase 16: a one-rank NCCL group and ``make_host_mesh()`` (1, 1) on
+    the card, (a) to (e), the group destroyed at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.set_device(dev)
+    mesh = make_host_mesh()
+    log(f"  mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+        f"{mesh.device_type}, backend {dist.get_backend()}")
+    child = start_dryrun_child()
+    try:
+        train = mesh_train(dev, cfg, mesh, ref0)
+        serve = mesh_serve(dev, cfg, mesh)
+        if decode_ref_ms is not None:
+            log(f"  decode on the mesh {serve['runs']['mesh']['decode_ms_per_step']:.3f}"
+                f" ms/step; phase 10's at {LM_BATCHES[0][0]} x "
+                f"{LM_BATCHES[0][1]}: {decode_ref_ms:.3f} ms/step")
+        compress = mesh_compress(dev, cfg)
+        restore = mesh_restore(dev, mesh)
+        dry = finish_dryrun_child(child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        dist.destroy_process_group()
+    return {"train": train, "serve": serve, "compress": compress,
+            "restore": restore, "dryrun": dry}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3094,6 +3419,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build_all()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == [MESH_FLAG]:         # phase 16 alone
+        log_phase(f"[16] main path: {TRAIN_ARCH} through a mesh")
+        run_mesh(dev, None, None)
+        log(smi)
+        return 0
 
     log_phase("[2-3] kernels A-F against their plain versions (bit-exact)")
     err = check_kernels(dev)
@@ -3154,6 +3484,14 @@ def main() -> int:
     training = run_training(dev, cfg)
     free_card()
 
+    log_phase(f"[16] main path: {TRAIN_ARCH} trained and served through a "
+              "(1, 1) mesh")
+    mesh = run_mesh(dev, {k: training["steps"][0][k]
+                          for k in ("loss", "grad_norm")},
+                    lm["batches"][next(iter(lm["batches"]))][
+                        "decode_ms_per_step"])
+    free_card()
+
     log_phase("[6] kernel times at the main paths' shapes")
     times = time_kernels(dev, main_path["schedule"])
     other_times = time_group_kernels(dev)
@@ -3182,7 +3520,8 @@ def main() -> int:
                   for impl in MOE_ENGINES},
                "encdec_generate": next(iter(encdec["served"].values()))[
                    "launches"],
-               "train_step": training["launches"]}
+               "train_step": training["launches"],
+               "mesh_train_step": mesh["train"]["steps"][1]["launches"]}
     path_of = {"seg_agg": "groupby_gpu_only_partitioned",
                "hash_bucket": "groupby_gpu_only_partitioned",
                "radix_hist": "groupby_gpu_only_partitioned",
@@ -3237,6 +3576,13 @@ def main() -> int:
             f"{r['batch'] // r['accum']} x {training['seq']}): {r['ms']:.3f}"
             f" ms, {r['tokens_per_s']:.1f} tok/s, loss {r['loss']:.4f}, "
             f"peak {r['peak_bytes'] / 2**30:.2f} GiB")
+    for r in mesh["train"]["steps"]:
+        log(f"  mesh train step {r['step']}: {r['ms']:.3f} ms, loss "
+            f"{r['loss']:.4f}, peak {r['peak_bytes'] / 2**30:.2f} GiB")
+    for what, r in mesh["serve"]["runs"].items():
+        log(f"  mesh serve {what}: prefill {r['prefill_ms']:.3f} ms, "
+            f"decode {r['decode_ms_per_step']:.3f} ms/step")
+    log(f"  mesh dry-run: {mesh['dryrun']['line']}")
     log(f"  whole script {time.perf_counter() - T_START:.1f} s")
     log(smi)
     print(json.dumps({"kernels": record}))

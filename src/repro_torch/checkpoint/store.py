@@ -38,6 +38,8 @@ import torch
 
 from ..core.relation import resolve_device
 from ..core.tree import flatten_with_paths, tree_map_with_path
+from ..distributed.sharding import Sharding, is_dtensor
+from ..models.params import distribute
 
 _NP_DTYPES = {torch.float32: "float32", torch.float16: "float16",
               torch.float64: "float64", torch.bfloat16: "bfloat16",
@@ -49,6 +51,8 @@ _TORCH_DTYPES = {v: k for k, v in _NP_DTYPES.items()}
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     """(array to store, logical dtype name) of a leaf."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         name = _NP_DTYPES[t.dtype]
         if t.dtype == torch.bfloat16:
@@ -108,23 +112,48 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, step: int, like_tree, *,
-                       device=None, host_index: int = 0):
+                       shardings_tree=None, device=None,
+                       host_index: int = 0):
     """``like_tree`` holding step ``step``'s leaves.  A tensor leaf is
     filled in place (so restoring into ``param_tree(lm)`` loads the LM,
-    with no second copy of its weights); any other leaf becomes a new
-    tensor of its dtype on ``device`` (the card unless told otherwise)."""
+    with no second copy of its weights; a DTensor leaf's shard from the
+    full stored leaf); any other leaf becomes a new tensor of its dtype on
+    ``device`` (the card unless told otherwise).
+
+    ``shardings_tree`` (the shape of ``like_tree``, a ``Sharding`` or None
+    per leaf) restores elastically: the archive keeps full leaves, so
+    each is distributed onto its sharding, whatever mesh saved it; a
+    DTensor leaf already on that sharding is filled in place, any other
+    leaf is replaced."""
     path = os.path.join(directory, f"step_{step:08d}")
     data = np.load(os.path.join(path, f"shard_{host_index}.npz"))
+    flat_sh = ({k: v for k, v in flatten_with_paths(shardings_tree).items()
+                if v is not None} if shardings_tree is not None else {})
 
     def load(key, leaf):
         arr = torch.from_numpy(np.array(data[key.replace("/", "__")]))
         if not isinstance(leaf, torch.Tensor):
-            return arr.to(resolve_device(device), _dtype_of(leaf))
+            arr = arr.to(dtype=_dtype_of(leaf))
+            if key in flat_sh:
+                return distribute(arr, flat_sh[key])
+            return arr.to(resolve_device(device))
         if arr.shape != leaf.shape:
             raise ValueError(f"{key}: stored shape {tuple(arr.shape)}, "
                              f"tree's {tuple(leaf.shape)}")
-        with torch.no_grad():
-            return leaf.copy_(arr)
+        arr = arr.to(dtype=leaf.dtype)
+        sh = flat_sh.get(key)
+        if sh is None and is_dtensor(leaf):
+            sh = Sharding(leaf.device_mesh, tuple(leaf.placements))
+        if sh is None:
+            with torch.no_grad():
+                return leaf.copy_(arr)
+        new = distribute(arr, sh)
+        if is_dtensor(leaf) and (leaf.device_mesh, tuple(
+                leaf.placements)) == tuple(sh):
+            with torch.no_grad():
+                leaf.to_local().copy_(new.to_local())
+            return leaf
+        return new
 
     return tree_map_with_path(load, like_tree)
 
@@ -165,9 +194,11 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, like_tree, *, device=None):
+    def restore_latest(self, like_tree, *, shardings_tree=None,
+                       device=None):
         step = latest_step(self.directory)
         if step is None:
             return None, 0
         return restore_checkpoint(self.directory, step, like_tree,
+                                  shardings_tree=shardings_tree,
                                   device=device), step

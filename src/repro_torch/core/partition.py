@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from ..kernels.partition_hist.ops import fused_partition_pass, radix_hist
+from ..kernels.partition_hist.ops import fused_partition_pass, radix_hist_op
 from .relation import Relation, radix_of
 
 
@@ -42,8 +42,9 @@ def partition_n1(key: torch.Tensor, *, shift: int, bits: int) -> torch.Tensor:
 
 def partition_n2(pid: torch.Tensor, num_parts: int):
     """(n2) partition headers: histogram (kernel E on CUDA) + exclusive
-    scan (the allocator)."""
-    counts = radix_hist(pid, num_parts=num_parts)
+    scan (the allocator).  E goes through its custom op, whose fake
+    kernel gives the headers' shape to a trace under ``FakeTensorMode``."""
+    counts = radix_hist_op(pid, num_parts)
     starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     return starts, counts
 

@@ -10,10 +10,10 @@ behind ``partition_n2``.
 import torch
 
 from .fused import partition_hist_fused
-from .partition_hist import radix_hist
+from .partition_hist import radix_hist, radix_hist_op
 from .reorder import radix_scatter
 
-__all__ = ["fused_partition_pass", "radix_hist"]
+__all__ = ["fused_partition_pass", "radix_hist", "radix_hist_op"]
 
 
 def fused_partition_pass(rel, *, shift: int, bits: int):

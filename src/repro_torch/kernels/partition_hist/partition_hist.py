@@ -25,6 +25,19 @@ def radix_hist_plain(pid: torch.Tensor, *, num_parts: int) -> torch.Tensor:
     return counts[:num_parts].to(torch.int32)
 
 
+@torch.library.custom_op("repro_torch::radix_hist", mutates_args=())
+def radix_hist_op(pid: torch.Tensor, num_parts: int) -> torch.Tensor:
+    """``radix_hist`` as a custom op, whose fake kernel gives the
+    (num_parts,) int32 output for a trace under ``FakeTensorMode`` (the
+    plain version's ``bincount`` has a data-dependent shape there)."""
+    return radix_hist(pid, num_parts=num_parts)
+
+
+@radix_hist_op.register_fake
+def _(pid, num_parts):
+    return pid.new_empty((num_parts,), dtype=torch.int32)
+
+
 def radix_hist(pid: torch.Tensor, *, num_parts: int) -> torch.Tensor:
     """Histogram of ``pid`` over ``num_parts`` bins.
 

@@ -6,6 +6,12 @@ on a CPU tensor, kernel H (``ssd.ssd_intra_chunk``, in the variant its
 dtype selects) on a CUDA tensor.  The choice follows x's device alone,
 with no fallback between the two: what the kernel does not take raises.
 
+The forward is the custom op ``repro_torch::ssd_intra_chunk_fwd``, whose
+fake kernel gives the output's shape and dtype for a dry-run on meta
+or fake tensors.  A DTensor raises: on a mesh, ``layers/ssd.py`` maps the
+whole chunked scan with ``local_map``, so each rank calls this on its own
+batch rows and heads and no DTensor reaches the kernel's wrapper.
+
 The call is a ``torch.autograd.Function`` (``SSDIntraChunk``).  Its
 backward is plain torch on both devices, as the JAX package has no
 backward Pallas kernel: it recomputes the oracle from the saved inputs
@@ -18,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ...distributed.sharding import is_dtensor
 from . import ssd as _kernel
 from .ref import ssd_intra_chunk_ref
 
@@ -31,10 +38,17 @@ def ssd_intra_chunk_bwd(x, dt, b, c, a, grad_out):
         return torch.autograd.grad(y, ins, grad_out)
 
 
-def _forward(x, dt, b, c, a) -> torch.Tensor:
+@torch.library.custom_op("repro_torch::ssd_intra_chunk_fwd", mutates_args=())
+def _forward(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ssd_intra_chunk_ref(x, dt, b, c, a)
     return _kernel.ssd_intra_chunk(x, dt, b, c, a)
+
+
+@_forward.register_fake
+def _(x, dt, b, c, a):
+    return x.new_empty(x.shape, dtype=torch.float32)
 
 
 class SSDIntraChunk(torch.autograd.Function):
@@ -56,4 +70,7 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     """Y_intra (B, NC, Q, H, P) float32 of x (B, NC, Q, H, P); dt
     (B, NC, Q, H); b, c (B, NC, Q, N); a (H,), differentiable in all
     five."""
+    if is_dtensor(x):
+        raise TypeError("ssd_intra_chunk takes local tensors: "
+                        "layers/ssd.py maps the scan over the mesh")
     return SSDIntraChunk.apply(x, dt, b, c, a)

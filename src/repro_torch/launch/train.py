@@ -4,11 +4,15 @@
       --smoke --device cpu --steps 20 --ckpt-dir /tmp/ckpt
 
 Counterpart of ``repro/launch/train.py``, with its flags and loop:
-random weights from seed 0, AdamW with a cosine schedule, the
-deterministic synthetic stream (any process can rebuild any step's
-batch), periodic checkpoints, resume from the latest, a SIGTERM flush.
-``--device`` picks the device (``cuda`` by default; it raises without a
-card).  The JAX package's TPU compiler flags have no counterpart here.
+random weights from seed 0, AdamW with a cosine schedule, the step on
+``make_host_mesh()`` under ``TRAIN_RULES``, the deterministic synthetic
+stream (any process can rebuild any step's batch), periodic checkpoints,
+resume from the latest, a SIGTERM flush.  ``--device`` picks the device
+(``cuda`` by default; it raises without a card).  Run alone, the mesh is
+(1, 1) over a process group of this process (NCCL on the card, gloo on
+the CPU), which ``main`` starts and ends; under ``torchrun`` it spans the
+ranks torchrun started.  The JAX package's TPU compiler flags have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 
 def parse_args(argv=None):
@@ -41,15 +46,25 @@ def main(argv=None) -> dict:
     """Train as the flags say; returns the last step's metrics (floats)
     and the step the run started from (``start``)."""
     args = parse_args(argv)
+    started = not dist.is_initialized()
+    try:
+        return _train(args)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _train(args) -> dict:
     from ..checkpoint import CheckpointManager
     from ..configs import ShapeSpec, get_config, reduced
     from ..core.relation import resolve_device
     from ..core.tree import param_tree
     from ..data.pipeline import SyntheticLM, enc_frames
+    from ..distributed.sharding import TRAIN_RULES
     from ..models import transformer as tfm
     from ..optim.adamw import AdamWConfig, adamw_init
     from ..train.step import make_train_step
+    from .mesh import make_host_mesh
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch.replace("-", "_"))
@@ -57,15 +72,18 @@ def main(argv=None) -> dict:
         cfg = reduced(cfg)
     cfg = dataclasses.replace(cfg, train_accum=args.accum)
     shape = ShapeSpec("cli", args.seq_len, args.batch, "train")
+    mesh = make_host_mesh(device=device)
     opt = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                       total_steps=args.steps)
     params = tfm.init_params(cfg, device=device)
     opt_state = adamw_init(params, opt)
     n_params = sum(p.numel() for p in params.parameters())
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M device={device} "
+          f"mesh={tuple(mesh.shape)} "
           f"tokens/step={shape.global_batch * shape.seq_len}")
 
-    step_fn = make_train_step(cfg, opt, accum_steps=args.accum,
+    step_fn = make_train_step(cfg, mesh, TRAIN_RULES, opt,
+                              accum_steps=args.accum,
                               compress_pod_grads=args.compress_pod_grads)
     ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch)
     mgr = CheckpointManager(args.ckpt_dir, save_every=args.ckpt_every) \

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from ..distributed.sharding import is_dtensor, local_range, shard
 from ..kernels.flash_attn.ops import flash_attention
 from ..models.params import ParamSpec
 from .core import apply_rope, rmsnorm, rmsnorm_spec
@@ -64,7 +65,23 @@ def _project_qkv(params, cfg, x, positions, *, rope: bool = True):
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", None, "heads", "head_dim")
+    k = shard(k, "batch", None, "kv_heads", "head_dim")
+    v = shard(v, "batch", None, "kv_heads", "head_dim")
     return q, k, v
+
+
+def _heads_like(q, k):
+    """The DTensor q with its heads replicated on every mesh dim where k's
+    heads are not split the same way (the grouped view of q cannot split
+    kv heads that the mesh dim does not divide).  One decode row's q is
+    small."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(Replicate() if p == Shard(2) and pk != Shard(2) else p
+                 for p, pk in zip(q.placements, k.placements))
+    return q if want == tuple(q.placements) else \
+        q.redistribute(q.device_mesh, want)
 
 
 def _sdpa(q, k, v, mask, num_kv: int):
@@ -75,6 +92,8 @@ def _sdpa(q, k, v, mask, num_kv: int):
     """
     b, sq, h, d = q.shape
     g = h // num_kv
+    if is_dtensor(q):
+        q = _heads_like(q, k)
     qg = q.reshape(b, sq, num_kv, g, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
     scores = scores / math.sqrt(d)
@@ -100,6 +119,7 @@ def attention(params, cfg, x: torch.Tensor, positions: torch.Tensor,
     """Full-sequence attention (train / prefill).  Returns (out, (k, v))."""
     q, k, v = _project_qkv(params, cfg, x, positions)
     out = _sdpa_chunked(q, k, v, cfg.num_kv_heads, causal=causal)
+    out = shard(out, "batch", None, "heads", "head_dim")
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
 
 
@@ -110,6 +130,7 @@ def cross_attention(params, cfg, x: torch.Tensor,
     on a CUDA tensor; one query row (a decode step) stays plain ``_sdpa``,
     as ``decode_attention`` does."""
     q = _proj(x, params["wq"])
+    q = shard(q, "batch", None, "heads", "head_dim")
     k, v = kv_cache
     if q.shape[1] == 1:
         out = _sdpa(q, k, v, None, cfg.num_kv_heads)
@@ -121,7 +142,29 @@ def cross_attention(params, cfg, x: torch.Tensor,
 def cross_kv(params, enc_out: torch.Tensor):
     """The encoder output's keys and values for cross attention:
     (B, F, KV, D) each, with no bias and no RoPE."""
-    return _proj(enc_out, params["wk"]), _proj(enc_out, params["wv"])
+    k = _proj(enc_out, params["wk"])
+    v = _proj(enc_out, params["wv"])
+    return (shard(k, "batch", "seq", "kv_heads", "head_dim"),
+            shard(v, "batch", "seq", "kv_heads", "head_dim"))
+
+
+def write_seq(dst: torch.Tensor, src: torch.Tensor, start: int) -> None:
+    """``dst[:, start:start + S] = src`` in place, S = src.shape[1].  On
+    DTensors each rank writes the positions of its own shard of ``dst``
+    (``src`` is first given ``dst``'s placements, replicated along the
+    sequence), as no sharding rule writes a slice of a DTensor."""
+    if not is_dtensor(dst):
+        dst[:, start:start + src.shape[1]] = src
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(Replicate() if p == Shard(1) else p
+                 for p in dst.placements)
+    src = src.redistribute(dst.device_mesh, want).to_local()
+    lo, hi = local_range(dst, 1)
+    a, b = max(start, lo), min(start + src.shape[1], hi)
+    if a < b:
+        dst.to_local()[:, a - lo:b - lo] = src[:, a - start:b - start]
 
 
 def decode_attention(params, cfg, x: torch.Tensor, k_cache: torch.Tensor,
@@ -136,8 +179,10 @@ def decode_attention(params, cfg, x: torch.Tensor, k_cache: torch.Tensor,
     positions = torch.full((b, 1), cache_len, dtype=torch.int32,
                            device=x.device)
     q, k_new, v_new = _project_qkv(params, cfg, x, positions)
-    k_cache[:, cache_len:cache_len + 1] = k_new.to(k_cache.dtype)
-    v_cache[:, cache_len:cache_len + 1] = v_new.to(v_cache.dtype)
+    write_seq(k_cache, k_new.to(k_cache.dtype), cache_len)
+    write_seq(v_cache, v_new.to(v_cache.dtype), cache_len)
+    k_cache = shard(k_cache, "batch", "cache_seq", "kv_heads", "head_dim")
+    v_cache = shard(v_cache, "batch", "cache_seq", "kv_heads", "head_dim")
     mask = torch.arange(smax, device=x.device) <= cache_len
     out = _sdpa(q, k_cache, v_cache, mask, cfg.num_kv_heads)
     return (torch.einsum("bshk,hkd->bsd", out, params["wo"]),

@@ -3,13 +3,15 @@
 Counterpart of ``repro/layers/core.py``: plain functions over parameter
 mappings (an ``nn.Module`` of the port's ``Params`` or a dict), named as
 in the JAX package.  Norm math in float32, outputs cast back to the
-input's dtype.
+input's dtype.  ``shard`` annotates activations where the JAX package
+does (the identity without a mesh).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import is_dtensor, shard
 from ..models.params import ParamSpec
 
 
@@ -58,10 +60,20 @@ def mlp_specs(d: int, f: int) -> dict:
     }
 
 
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, ...) with its sequence whole on every rank, before a
+    matmul that flattens (B, S): where the output's own axes take the
+    model axis ("mlp", "vocab"), GSPMD gathers the sequence there
+    implicitly; DTensor (torch 2.11) will not flatten two split dims."""
+    return shard(x, "batch", *(None,) * (x.dim() - 1))
+
+
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    x = gather_seq(x)
     gate = x @ params["wi_gate"]
     up = x @ params["wi_up"]
     h = F.silu(gate.float()).to(x.dtype) * up
+    h = shard(h, "batch", "seq", "mlp")
     return h @ params["wo"]
 
 
@@ -76,7 +88,14 @@ def embed_specs(cfg) -> dict:
 
 
 def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["embedding"].to(dtype)[tokens]
+    w = params["embedding"].to(dtype)
+    if is_dtensor(tokens) and any(p.is_shard() for p in tokens.placements):
+        # The lookup's backward on split tokens: DTensor's rule for
+        # ``index_put`` breaks there in torch 2.11; ``embedding``'s holds.
+        h = F.embedding(tokens, w)
+    else:
+        h = w[tokens]
+    return shard(h, "batch", "seq", None)
 
 
 def logits_fn(params, h: torch.Tensor, vocab_size: int) -> torch.Tensor:
@@ -86,7 +105,12 @@ def logits_fn(params, h: torch.Tensor, vocab_size: int) -> torch.Tensor:
         logits = h @ params["lm_head"]
     else:
         logits = h @ params["embedding"].t()
+    logits = shard(logits, "batch", "seq", "vocab")
     pv = logits.shape[-1]
     if pv > vocab_size:
+        if is_dtensor(logits):
+            # No sharding rule fills a slice of a DTensor in place.
+            pad = torch.arange(pv, device=logits.device) >= vocab_size
+            return logits.masked_fill(pad, -1e9)
         logits[..., vocab_size:] = -1e9
     return logits

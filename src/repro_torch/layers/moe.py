@@ -1,7 +1,7 @@
 """Mixture-of-Experts FFN with two dispatch engines.
 
-Counterpart of ``repro/layers/moe.py``; the JAX package's ``shard``
-annotations are the identity on one card and are dropped.
+Counterpart of ``repro/layers/moe.py``, with its ``shard`` annotations
+(the identity without a mesh).
 
 1. ``dense``  -- one-hot dispatch: tokens in groups of ``_group_len``,
    each group with its own expert capacity; dispatch and combine are
@@ -22,9 +22,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (current_mesh, current_rules,
+                                    is_dtensor, placements_for, shard)
 from ..core.partition import partition_n2
 from ..models.params import ParamSpec
-from .core import mlp, mlp_specs
+from .core import gather_seq, mlp, mlp_specs
 
 
 def moe_specs(cfg) -> dict:
@@ -72,11 +74,27 @@ def _route(params, m, xg: torch.Tensor):
     return idx, wk.to(xg.dtype), probs
 
 
+def _experts_ffn_sharded(params, expert_in: torch.Tensor) -> torch.Tensor:
+    """``_experts_ffn`` of DTensors with the expert dim leading, (E, G, C,
+    .), which is the layout the einsums' batched products take: their own
+    permute of a DTensor leaves local strides a later view cannot merge."""
+    xe = expert_in.transpose(0, 1).contiguous()
+    gate = torch.einsum("egcd,edf->egcf", xe, params["wi_gate"])
+    up = torch.einsum("egcd,edf->egcf", xe, params["wi_up"])
+    h = F.silu(gate.float()).to(xe.dtype) * up
+    h = shard(h, "experts", "moe_group", "expert_cap", "expert_mlp")
+    out = torch.einsum("egcf,efd->egcd", h.contiguous(), params["wo"])
+    return out.transpose(0, 1)
+
+
 def _experts_ffn(params, expert_in: torch.Tensor) -> torch.Tensor:
     """expert_in: (G, E, C, d) -> (G, E, C, d)."""
+    if is_dtensor(expert_in):
+        return _experts_ffn_sharded(params, expert_in)
     gate = torch.einsum("gecd,edf->gecf", expert_in, params["wi_gate"])
     up = torch.einsum("gecd,edf->gecf", expert_in, params["wi_up"])
     h = F.silu(gate.float()).to(expert_in.dtype) * up
+    h = shard(h, "moe_group", "experts", "expert_cap", "expert_mlp")
     return torch.einsum("gecf,efd->gecd", h, params["wo"])
 
 
@@ -97,13 +115,44 @@ def _group_len(n: int, pref: int) -> int:
     return 1
 
 
+def _batch_ranks(x: torch.Tensor, b: int) -> int:
+    """The ranks the rules split a batch of ``b`` over (1 without a
+    mesh)."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None or not is_dtensor(x):
+        return 1
+    n = 1
+    for i, p in enumerate(placements_for(("batch",), (b,), rules, mesh)):
+        n *= mesh.size(i) if p.is_shard() else 1
+    return n
+
+
+def _regroup(x: torch.Tensor, shape: tuple, g: int, b: int):
+    """x reshaped to ``shape``, between (B, S, d) and (g, t, d).  On a
+    DTensor whose batch split does not divide the ``g`` dispatch groups,
+    the view is taken on whole replicas and its gradient held replicated
+    (DTensor would otherwise split the groups of the gradient unevenly,
+    8 groups over a 16-way batch, and fail to view them back)."""
+    if g % _batch_ranks(x, b) == 0:
+        return x.reshape(shape)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    return local_map(lambda u: u.reshape(shape), out_placements=rep,
+                     in_placements=(rep,), in_grad_placements=(rep,),
+                     device_mesh=mesh)(x.redistribute(mesh, rep))
+
+
 def moe_dense(params, cfg, x: torch.Tensor):
     """One-hot dispatch.  x: (B, S, d) -> (B, S, d), aux loss."""
     m = cfg.moe
     b, s, d = x.shape
     t = _group_len(b * s, m.group_size)
     g = (b * s) // t
-    xg = x.reshape(g, t, d)
+    xg = _regroup(gather_seq(x), (g, t, d), g, b)
+    xg = shard(xg, "moe_group", None, None)
     idx, wk, probs = _route(params, m, xg)
     cap = _capacity(t, m)
     e = m.num_experts
@@ -122,12 +171,55 @@ def moe_dense(params, cfg, x: torch.Tensor):
     oh_x = oh.to(x.dtype)
     disp = torch.einsum("gtke,gtkc->gtec", oh_x, pos_oh)
     comb = torch.einsum("gtke,gtkc->gtec", oh_x, pos_oh * wk[..., None])
+    disp = shard(disp, "moe_group", None, "experts", "expert_cap")
     expert_in = torch.einsum("gtec,gtd->gecd", disp, xg)
+    expert_in = shard(expert_in, "moe_group", "experts", "expert_cap", None)
     expert_out = _experts_ffn(params, expert_in)
     out = torch.einsum("gtec,gecd->gtd", comb, expert_out)
     if "shared" in params:
         out = out + mlp(params["shared"], xg)
-    return out.reshape(b, s, d), _aux_loss(probs, idx, e)
+    return _regroup(out, (b, s, d), g, b), _aux_loss(probs, idx, e)
+
+
+def _sorted_plan(pid: torch.Tensor, n: int, e: int, cap: int):
+    """The radix-partition dispatch plan of ``pid`` (K*N,) int32, the
+    expert ids of N tokens, slot-major: (order, keep, slot, buf_tok,
+    buf_valid, at) as ``moe_sorted`` uses them."""
+    kn = pid.shape[0]
+    # n2: expert headers -- histogram (kernel E) + scan allocation.
+    starts, _ = partition_n2(pid, e)
+    # n3: scatter <token, weight> into the expert's capacity buffer.
+    order = torch.sort(pid, stable=True).indices
+    pid_o = pid[order]
+    rank = torch.arange(kn, dtype=torch.int32,
+                        device=pid.device) - starts[pid_o]
+    keep = rank < cap
+    slot = torch.where(keep, pid_o * cap + rank, e * cap)  # spill -> drop
+    # Every dropped pair writes the spill slot e * cap, which is cut off.
+    # Pair i is token i % n's (slot-major).
+    buf_tok = torch.zeros(e * cap + 1, dtype=torch.int32, device=pid.device)
+    buf_tok[slot] = (order % n).to(torch.int32)
+    buf_valid = torch.zeros(e * cap + 1, dtype=torch.bool, device=pid.device)
+    buf_valid[slot] = keep
+    at = torch.empty_like(order)
+    at[order] = torch.arange(kn, device=pid.device)
+    return order, keep, slot, buf_tok, buf_valid, at
+
+
+def _plan(pid: torch.Tensor, n: int, e: int, cap: int):
+    """``_sorted_plan``; on a DTensor every rank plans the whole batch
+    from the replicated expert ids through ``local_map`` (sort, scatter
+    and kernel E have no sharding rule), and the plan is replicated."""
+    if not is_dtensor(pid):
+        return _sorted_plan(pid, n, e, cap)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    rep = [Replicate()] * pid.device_mesh.ndim
+    pid = pid.redistribute(pid.device_mesh, rep)
+    return local_map(lambda p: _sorted_plan(p, n, e, cap),
+                     out_placements=(rep,) * 6, in_placements=(rep,),
+                     device_mesh=pid.device_mesh)(pid)
 
 
 def moe_sorted(params, cfg, x: torch.Tensor):
@@ -136,7 +228,7 @@ def moe_sorted(params, cfg, x: torch.Tensor):
     b, s, d = x.shape
     n = b * s
     k = m.top_k
-    xf = x.reshape(n, d)
+    xf = gather_seq(x).reshape(n, d)
     idx, wk, probs = _route(params, m, xf[None])          # treat as 1 group
     idx, wk = idx[0], wk[0]                               # (N,K)
     e = m.num_experts
@@ -144,22 +236,8 @@ def moe_sorted(params, cfg, x: torch.Tensor):
     # n1: partition number = expert id, one entry per (token, slot) --
     # slot-major order so capacity drops match moe_dense's priority.
     pid = idx.t().reshape(-1)                             # (K*N,) int32
-    tok = torch.arange(n, dtype=torch.int32, device=x.device).repeat(k)
     w = wk.t().reshape(-1)
-    # n2: expert headers -- histogram + scan allocation.
-    starts, _ = partition_n2(pid, e)
-    # n3: scatter <token, weight> into the expert's capacity buffer.
-    order = torch.sort(pid, stable=True).indices
-    pid_o = pid[order]
-    rank = torch.arange(n * k, dtype=torch.int32,
-                        device=x.device) - starts[pid_o]
-    keep = rank < cap
-    slot = torch.where(keep, pid_o * cap + rank, e * cap)  # spill -> drop
-    # Every dropped pair writes the spill slot e * cap, which is cut off.
-    buf_tok = torch.zeros(e * cap + 1, dtype=torch.int32, device=x.device)
-    buf_tok[slot] = tok[order]
-    buf_valid = torch.zeros(e * cap + 1, dtype=torch.bool, device=x.device)
-    buf_valid[slot] = keep
+    order, keep, slot, buf_tok, buf_valid, at = _plan(pid, n, e, cap)
     expert_in = torch.where(buf_valid[:e * cap, None],
                             xf[buf_tok[:e * cap]], 0).reshape(1, e, cap, d)
     expert_out = _experts_ffn(params, expert_in).reshape(e * cap, d)
@@ -171,8 +249,6 @@ def moe_sorted(params, cfg, x: torch.Tensor):
     # order of ``order`` (ascending expert), rounding each add to x's
     # dtype; the same sum here, as k gathers in that order.  (index_add_
     # on a card adds in an order that changes from run to run.)
-    at = torch.empty_like(order)
-    at[order] = torch.arange(n * k, device=x.device)
     at = torch.sort(at.view(k, n).t(), dim=1).values     # (N,K) ascending
     out = torch.zeros(n, d, dtype=x.dtype, device=x.device)
     for j in range(k):

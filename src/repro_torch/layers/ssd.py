@@ -18,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (check_placements, elementwise,
+                                    is_dtensor, shard)
 from ..kernels.ssd.ops import ssd_intra_chunk
 from ..models.params import ParamSpec
 from .core import rmsnorm, rmsnorm_spec
@@ -77,13 +79,44 @@ def _segsum(a):
     return torch.where(mask, s, -torch.inf)
 
 
+def _ssd_sharded(x, dt, A, B, C, chunk: int):
+    """``ssd_chunked`` of DTensors through ``local_map``: the scan is
+    independent per sequence and per head, so each rank scans its own
+    batch rows and heads, kernel H included, on plain local tensors.  x
+    may be split on its batch (dim 0) and heads (dim 2), any other
+    placement raises; dt, A, B and C follow x (B and C, which have no
+    heads, are replicated where the heads are split, and their gradient
+    there is a partial sum, as is A's over a batch split)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    check_placements("ssd_chunked x", x, (0, 2))
+    mesh = x.device_mesh
+    xp = tuple(x.placements)
+    bp = tuple(p if p == Shard(0) else Replicate() for p in xp)
+    bgrad = tuple(Partial() if p == Shard(2) else q for p, q in zip(xp, bp))
+    ap = tuple(Shard(0) if p == Shard(2) else Replicate() for p in xp)
+    agrad = tuple(Partial() if p == Shard(0) else q for p, q in zip(xp, ap))
+    sp = tuple(p if p == Shard(0) else (Shard(1) if p == Shard(2)
+                                        else Replicate()) for p in xp)
+    dt, A = dt.redistribute(mesh, xp), A.redistribute(mesh, ap)
+    B, C = B.redistribute(mesh, bp), C.redistribute(mesh, bp)
+    return local_map(
+        lambda *t: ssd_chunked(*t, chunk), out_placements=(xp, sp),
+        in_placements=(xp, xp, ap, bp, bp),
+        in_grad_placements=(xp, xp, agrad, bgrad, bgrad),
+        device_mesh=mesh)(x, dt, A, B, C)
+
+
 def ssd_chunked(x, dt, A, B, C, chunk: int):
     """Chunked SSD scan.
 
     x: (b, l, h, p); dt: (b, l, h) (post-softplus, float32); A: (h,)
     negative; B, C: (b, l, n).  Returns y: (b, l, h, p) in x's dtype and
-    the final state (b, h, p, n) float32.
+    the final state (b, h, p, n) float32.  On DTensors, ``_ssd_sharded``.
     """
+    if is_dtensor(x):
+        return _ssd_sharded(x, dt, A, B, C, chunk)
     b, l0, h, p = x.shape
     n = B.shape[-1]
     q = min(chunk, l0)
@@ -151,7 +184,8 @@ def mamba_block(params, cfg, x: torch.Tensor, state: dict | None = None):
     xs = x @ params["in_x"]
     Braw = x @ params["in_b"]
     Craw = x @ params["in_c"]
-    dt = F.softplus((x @ params["in_dt"]).float() + params["dt_bias"])
+    dt = elementwise(F.softplus,
+                     (x @ params["in_dt"]).float() + params["dt_bias"])
 
     xs, cx = _causal_conv(xs, params["conv_x"],
                           state["conv_x"] if decode else None)
@@ -159,8 +193,10 @@ def mamba_block(params, cfg, x: torch.Tensor, state: dict | None = None):
                           state["conv_b"] if decode else None)
     Cv, cc = _causal_conv(Craw, params["conv_c"],
                           state["conv_c"] if decode else None)
+    xs = shard(xs, "batch", "seq", "mlp")
     A = -torch.exp(params["A_log"])                       # (h,) negative
     xh = xs.reshape(bsz, l, nh, s.head_dim)
+    xh = shard(xh, "batch", "seq", "ssm_heads", None)
 
     if decode:
         y1, h1 = ssd_decode_step(xh[:, 0], dt[:, 0], A, Bv[:, 0], Cv[:, 0],

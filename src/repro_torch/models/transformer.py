@@ -34,6 +34,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import shard
 from ..layers import attention as attn
 from ..layers import moe as moe_lib
 from ..layers import ssd
@@ -108,6 +109,27 @@ def param_specs(cfg: ModelConfig) -> dict:
         enc_unit = {"0D": block_specs(cfg, "D")}
         specs["encoder"] = {"unit": _stack(enc_unit, cfg.encoder.num_layers),
                             "final_norm": rmsnorm_spec(cfg.d_model)}
+    return specs
+
+
+def _unstack_specs(spec_tree: dict) -> dict:
+    """One unit's specs of a stacked spec tree (the leading ``layers``
+    axis, which no rule shards, dropped)."""
+    return {k: (ParamSpec(s.shape[1:], s.axes[1:], init=s.init,
+                          scale=s.scale, dtype=s.dtype)
+                if isinstance(s, ParamSpec) else _unstack_specs(s))
+            for k, s in spec_tree.items()}
+
+
+def lm_specs(cfg: ModelConfig) -> dict:
+    """``param_specs`` shaped like ``param_tree`` of an ``LM``: ``unit``
+    (and the encoder's) a list of one unit's specs per unit."""
+    specs = dict(param_specs(cfg))
+    specs["unit"] = [_unstack_specs(specs["unit"])] * cfg.num_units
+    if cfg.encoder:
+        enc = specs["encoder"]
+        specs["encoder"] = dict(enc, unit=[_unstack_specs(enc["unit"])]
+                                * cfg.encoder.num_layers)
     return specs
 
 
@@ -264,6 +286,13 @@ def cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> dict:
     return specs
 
 
+def lm_cache_specs(cfg: ModelConfig, batch: int, s_max: int) -> dict:
+    """``cache_specs`` in the port's cache layout (``unit`` a list)."""
+    specs = dict(cache_specs(cfg, batch, s_max))
+    specs["unit"] = [_unstack_specs(specs["unit"])] * cfg.num_units
+    return specs
+
+
 # --------------------------------------------------------------------------
 # Block forward.
 # --------------------------------------------------------------------------
@@ -283,9 +312,15 @@ def _block_fwd(char: str, params, cfg: ModelConfig, h: torch.Tensor,
             state = {k: cache[k] for k in ("ssm", "conv_x", "conv_b",
                                            "conv_c")}
         x = rmsnorm(h, params["ln"], cfg.rms_eps)
+        # SP boundary: gather the sequence for the mixer, scatter after.
+        x = shard(x, "batch", None, None)
         y, st = ssd.mamba_block(params["mamba"], cfg, x, state)
+        y = shard(y, "batch", "seq", None)
         return h + y, st, 0.0
     x = rmsnorm(h, params["ln1"], cfg.rms_eps)
+    # SP boundary (Megatron-SP): the residual stream stays
+    # sequence-sharded; attention sees the gathered sequence.
+    x = shard(x, "batch", None, None)
     new_cache: dict = {}
     ckv = None
     if mode == "decode":
@@ -309,6 +344,7 @@ def _block_fwd(char: str, params, cfg: ModelConfig, h: torch.Tensor,
         y = y + attn.cross_attention(params["cross"], cfg, xc, ckv)
         if mode in ("prefill", "decode"):
             new_cache["ck"], new_cache["cv"] = ckv
+    y = shard(y, "batch", "seq", None)
     h = h + y
     x2 = rmsnorm(h, params["ln2"], cfg.rms_eps)
     if char == "E":
@@ -341,6 +377,7 @@ def _unit_fwd(unit, cfg: ModelConfig, pattern_unit: str, mode: str, h,
             unit_cache[key] if unit_cache is not None else None,
             cache_len, enc_out)
         aux = aux + a
+    h = shard(h, "batch", "seq", None)
     return h, aux, new_unit
 
 
@@ -403,7 +440,8 @@ def _encode(params: LM, cfg: ModelConfig, frames: torch.Tensor):
     package's adaptation), then its final norm."""
     b, f, _ = frames.shape
     enc = params.encoder
-    h, _, _ = _run_stack(enc, cfg, frames, _positions(b, f, frames.device),
+    h = shard(frames, "batch", "seq", None)
+    h, _, _ = _run_stack(enc, cfg, h, _positions(b, f, frames.device),
                          "encode", None, None, None, "D", want_cache=False)
     return rmsnorm(h, enc["final_norm"], cfg.rms_eps)
 

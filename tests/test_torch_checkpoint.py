@@ -191,7 +191,7 @@ def test_train_resume_equivalence(tmp_path):
     cfg = tconfigs.reduced(tconfigs.get_config("phi3_mini_3_8b"))
     shape = ShapeSpec("t", 32, 2, "train")
     opt = AdamWConfig(lr=1e-3)
-    step = tstep.make_train_step(cfg, opt)
+    step = tstep.make_train_step(cfg, None, None, opt)
 
     def fresh():
         lm = ttfm.init_params(cfg, torch.Generator().manual_seed(0),

@@ -959,7 +959,7 @@ def test_train_step_on_card_matches_cpu(dev):
         tconfigs.reduced(tconfigs.get_config("zamba2_1_2b")),
         dtype="float32", remat="full")
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    step = make_train_step(cfg, opt, accum_steps=2)
+    step = make_train_step(cfg, None, None, opt, accum_steps=2)
     cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0))
     card = tfm.init_params(cfg, torch.Generator().manual_seed(0)).to(dev)
     sc, sg = adamw_init(cpu, opt), adamw_init(card, opt)

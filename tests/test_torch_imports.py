@@ -57,7 +57,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.train.compress", "repro_torch.data",
             "repro_torch.data.pipeline", "repro_torch.checkpoint",
             "repro_torch.checkpoint.store",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.distributed",
+            "repro_torch.distributed.sharding"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -89,3 +91,12 @@ def test_no_jax_or_repro_import(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "ml_dtypes", "repro"), (path,
                                                                    name)
+
+
+def test_every_jax_module_has_a_counterpart():
+    """No module of the JAX package is left without one in the port."""
+    jax_pkg = ROOT / "src" / "repro"
+    missing = [str(p.relative_to(jax_pkg)) for p in sorted(
+        jax_pkg.rglob("*.py")) if "__pycache__" not in p.parts
+        and not (PKG / p.relative_to(jax_pkg)).exists()]
+    assert not missing, missing

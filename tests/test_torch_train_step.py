@@ -53,7 +53,7 @@ def test_train_step_matches_jax_over_three_steps(arch, accum, compress,
     jfn = jax.jit(jstep.make_train_step(jcfg, mesh, TRAIN_RULES, jopt,
                                         accum_steps=accum,
                                         compress_pod_grads=compress))
-    tfn = tstep.make_train_step(tcfg, topt, accum_steps=accum,
+    tfn = tstep.make_train_step(tcfg, None, None, topt, accum_steps=accum,
                                 compress_pod_grads=compress)
     for i in range(3):
         b = batch_np(tcfg, 4, 32, step=i)
@@ -79,7 +79,7 @@ def test_loss_decreases_on_structured_data():
                           device="cpu")
     opt = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=50)
     state = adamw_init(lm, opt)
-    step = tstep.make_train_step(cfg, opt)
+    step = tstep.make_train_step(cfg, None, None, opt)
     losses = []
     for i in range(16):
         batch = make_batch(cfg, ShapeSpec("t", 128, 4, "train"), step=i,

@@ -165,7 +165,7 @@ def profile_train(args, dev) -> int:
     params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     opt = AdamWConfig(lr=1e-3)
     state = adamw_init(params, opt)
-    step = tstep.make_train_step(cfg, opt)
+    step = tstep.make_train_step(cfg, None, None, opt)
     ds = SyntheticLM(cfg.vocab_size, args.seq_len, args.batch)
 
     def batch(i):
@@ -258,7 +258,8 @@ def main() -> int:
                                                              frames)
     print(f"{cfg.name} ({cfg.moe_impl if cfg.moe else 'no MoE'}): batch "
           f"{b}, prompt {p}, {steps} decode steps")
-    prefill, step = make_prefill_step(cfg), make_decode_step(cfg)
+    prefill = make_prefill_step(cfg, None, None)
+    step = make_decode_step(cfg, None, None)
     held = {}
 
     def run_prefill():
