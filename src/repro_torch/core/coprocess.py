@@ -701,7 +701,7 @@ class CoProcessor:
             mo = _round_up(max_out, 8) + 64
             results.append(grp.launch(partitioned_join)(
                 sub["R"], sub["S"], total_bits=total_bits, shj_bits=shj_bits,
-                max_out=mo))
+                max_out=mo, tracer=self.tracer))
         _maybe_fault("d2h")
         if len(results) == 1:
             return results[0]

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.trace import NULL_TRACER
 from . import hash_table as ht
 from .partition import Partitions, partition_n1, partition_n2, partition_n3, \
     radix_partition_scheduled
@@ -124,19 +125,27 @@ def partition_bucket_ids(key: torch.Tensor, *, total_bits: int,
 
 
 def partitioned_join(rel_r: Relation, rel_s: Relation, *, total_bits: int,
-                     shj_bits: int, max_out: int) -> ht.JoinResult:
+                     shj_bits: int, max_out: int,
+                     tracer=NULL_TRACER) -> ht.JoinResult:
     """SHJ of relations clustered by ``total_bits`` radix bits, with
     buckets aligned to partitions.  Build on R: its tuples are clustered,
-    so the (bucket, key) order inside the build is near-sorted."""
+    so the (bucket, key) order inside the build is near-sorted.
+
+    ``tracer`` spans the build (``join.build``: bucket ids, b2-b4) and
+    the probe (``join.probe``: bucket ids, p2-p4), device-timed on a
+    CUDA device."""
+    dev = rel_r.key.device
     num_buckets = 1 << (total_bits + shj_bits)
-    bkt = partition_bucket_ids(rel_r.key, total_bits=total_bits,
-                               shj_bits=shj_bits)
-    table = ht.table_from_buckets(rel_r, bkt, num_buckets)
-    pbkt = partition_bucket_ids(rel_s.key, total_bits=total_bits,
-                                shj_bits=shj_bits)
-    kstart, kcount = ht.probe_p2(table, pbkt)
-    entry, nmatch = ht.probe_p3(table, rel_s.key, kstart, kcount)
-    return ht.probe_p4(table, rel_s.rid, entry, nmatch, max_out)
+    with tracer.span("join.build", device=dev):
+        bkt = partition_bucket_ids(rel_r.key, total_bits=total_bits,
+                                   shj_bits=shj_bits)
+        table = ht.table_from_buckets(rel_r, bkt, num_buckets)
+    with tracer.span("join.probe", device=dev):
+        pbkt = partition_bucket_ids(rel_s.key, total_bits=total_bits,
+                                    shj_bits=shj_bits)
+        kstart, kcount = ht.probe_p2(table, pbkt)
+        entry, nmatch = ht.probe_p3(table, rel_s.key, kstart, kcount)
+        return ht.probe_p4(table, rel_s.rid, entry, nmatch, max_out)
 
 
 def phj_join(build_rel: Relation, probe_rel: Relation, *,

@@ -497,37 +497,62 @@ class JoinQueryService:
         self.ledger.record(nbytes, cause=cause, stage=stage, column=column,
                            direction=direction, tenant=tenant)
 
+    def _acquire_groups(self, plan) -> list:
+        """Take the execution locks of the plan's device groups, C then
+        G, each in a ``lock_wait`` span (``group``).  Returns the locks
+        held."""
+        held = []
+        for g in ("C", "G"):
+            if g not in _plan_groups(plan):
+                continue
+            lock = self.cp.group_locks[g]
+            with self.tracer.span("lock_wait", group=g):
+                lock.acquire()
+            held.append(lock)
+        return held
+
     def _fingerprint(self, rel, num_buckets: int, *,
                      stage: str = "-", column: str = "key",
                      tenant: str = "default") -> str:
-        # Structural fast path: a relation carrying an fp_hint (every
-        # pipeline-built stage input does) is keyed without touching the
-        # array contents — no D2H pull, nothing for the ledger.
-        hint = getattr(rel, "fp_hint", None)
-        if hint:
-            return f"struct:{hint}|b={num_buckets}"
-        memo_key = (id(rel.rid), id(rel.key), num_buckets)
-        with self._lock:
-            hit = self._fp_cache.get(memo_key)
-            if hit is not None:
-                return hit[0]
-        # Content hash of a hint-less relation: for device-resident arrays
-        # this pulls both columns across the boundary — attributed under
-        # the ledger's ``fingerprint`` cause (memo-missed pulls only; a
-        # repeat of the same array objects hits the memo above).
-        pulled = sum(int(getattr(col, "nbytes", 0))
-                     for col in (rel.rid, rel.key)
-                     if not isinstance(col, np.ndarray))
-        fp = relation_fingerprint(rel, num_buckets)
-        if pulled:
-            self.ledger.record(pulled, cause="fingerprint", stage=stage,
-                               column=column, direction="d2h",
-                               tenant=tenant)
-        with self._lock:
-            if len(self._fp_cache) > 256:
-                self._fp_cache.clear()
-            self._fp_cache[memo_key] = (fp, rel.rid, rel.key)
-        return fp
+        """The relation's cache key, in a ``fingerprint`` span (``side``
+        from ``column``; ``memo`` struct / hit / miss), with each
+        column's ``fingerprint.pull`` and ``fingerprint.hash`` inside on
+        a miss."""
+        with self.tracer.span("fingerprint", side=column.split(".")[0],
+                              memo="miss") as sp:
+            # Structural fast path: a relation carrying an fp_hint (every
+            # pipeline-built stage input does) is keyed without touching
+            # the array contents — no D2H pull, nothing for the ledger.
+            hint = getattr(rel, "fp_hint", None)
+            if hint:
+                if sp is not None:
+                    sp.set(memo="struct")
+                return f"struct:{hint}|b={num_buckets}"
+            memo_key = (id(rel.rid), id(rel.key), num_buckets)
+            with self._lock:
+                hit = self._fp_cache.get(memo_key)
+                if hit is not None:
+                    if sp is not None:
+                        sp.set(memo="hit")
+                    return hit[0]
+            # Content hash of a hint-less relation: for device-resident
+            # arrays this pulls both columns across the boundary —
+            # attributed under the ledger's ``fingerprint`` cause
+            # (memo-missed pulls only; a repeat of the same array objects
+            # hits the memo above).
+            pulled = sum(int(getattr(col, "nbytes", 0))
+                         for col in (rel.rid, rel.key)
+                         if not isinstance(col, np.ndarray))
+            fp = relation_fingerprint(rel, num_buckets, tracer=self.tracer)
+            if pulled:
+                self.ledger.record(pulled, cause="fingerprint", stage=stage,
+                                   column=column, direction="d2h",
+                                   tenant=tenant)
+            with self._lock:
+                if len(self._fp_cache) > 256:
+                    self._fp_cache.clear()
+                self._fp_cache[memo_key] = (fp, rel.rid, rel.key)
+            return fp
 
     def _device_wall(self, t0: float) -> float:
         """Seconds since the ``perf_counter`` stamp ``t0``, read once the
@@ -801,10 +826,7 @@ class JoinQueryService:
         # Disjoint plans — one C-only, one G-only — run concurrently,
         # which is the overlap the admission queue exists to create.
         # Fixed C-then-G acquisition order.
-        held = [self.cp.group_locks[g] for g in ("C", "G")
-                if g in _plan_groups(plan)]
-        for lock in held:
-            lock.acquire()
+        held = self._acquire_groups(plan)
         partition_hit = False
         probe_partition_hit = False
         try:
@@ -1003,10 +1025,7 @@ class JoinQueryService:
             inflight_at_start = self._inflight
             start_epoch = self._exec_epoch
             self._exec_epoch += 1
-        held = [self.cp.group_locks[g] for g in ("C", "G")
-                if g in _plan_groups(plan)]
-        for lock in held:
-            lock.acquire()
+        held = self._acquire_groups(plan)
         try:
             result, timing = groupby_coprocessed(
                 self.cp, q.keys, q.values, schedule=plan.schedule,

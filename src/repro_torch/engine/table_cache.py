@@ -23,19 +23,26 @@ import threading
 from collections import OrderedDict
 
 from ..core.relation import Relation
+from ..obs.trace import NULL_TRACER
 
 
-def relation_fingerprint(rel: Relation, num_buckets: int) -> str:
+def relation_fingerprint(rel: Relation, num_buckets: int, *,
+                         tracer=NULL_TRACER) -> str:
     """Content hash of a build relation + table geometry.
 
     Hashes the host bytes of both columns, so regenerating an identical
     relation (same generator, same seed) hits the same cache line even
     though the tensor objects differ.  A column on the card is pulled to
-    the host first (``.cpu()``, which waits for the device).
+    the host first (``.cpu()``, which waits for the device).  ``tracer``
+    spans each column's pull (``fingerprint.pull``) and hash
+    (``fingerprint.hash``).
     """
     h = hashlib.sha1()
-    h.update(rel.key.cpu().numpy().tobytes())
-    h.update(rel.rid.cpu().numpy().tobytes())
+    for col in (rel.key, rel.rid):
+        with tracer.span("fingerprint.pull"):
+            host = col.cpu().numpy()
+        with tracer.span("fingerprint.hash"):
+            h.update(host.tobytes())
     h.update(f"|n={rel.size}|b={num_buckets}".encode())
     return h.hexdigest()
 

@@ -1,6 +1,7 @@
 """Query-lifecycle tracing: lightweight spans with an injectable clock.
 
-A copy of ``repro/obs/trace.py`` (no framework imports).
+The counterpart of ``repro/obs/trace.py``, with two additions for the
+card: device-timed spans, and a ring that keeps the newest spans.
 
 The engine's observability substrate.  A ``Tracer`` records *spans* —
 named, attributed time intervals — from every layer of a query's life:
@@ -21,6 +22,16 @@ wait is measured on the submitting thread but ends on a worker — are
 recorded with :meth:`Tracer.lane` and exported as Chrome *async* events,
 which carry no nesting constraint.
 
+A span opened with ``device=`` a CUDA device is also *device-timed*: a
+CUDA timing event is recorded on that device's current stream as it
+opens and as it closes, and its record's ``device_s`` is the device time
+between the two (other threads' work queued on that stream between them
+included).  The events come from a pool the tracer keeps, and are read
+(and returned to the pool) by :meth:`Tracer.resolve_device`, which
+reading the spans calls: the join service reads a query's spans once it
+has released its device-group locks.  Until then ``device_s`` is
+``None``, as it stays for untimed spans and CPU devices.
+
 Exports:
 
   * :meth:`Tracer.chrome_trace` / :meth:`Tracer.write_chrome_trace` —
@@ -34,16 +45,20 @@ defaults to it — pays nothing for the plumbing.
 """
 from __future__ import annotations
 
-import contextlib
+import collections
 import dataclasses
 import itertools
 import json
 import threading
 import time
 
+import torch
+
 # Attribute keys a child span inherits from its innermost open ancestor
 # on the same thread (unless it sets them itself).
 AMBIENT_ATTRS = ("q_key", "query_id", "tenant", "tag", "scheme")
+# Device-timed spans left pending before opening another resolves them.
+MAX_PENDING = 64
 
 
 @dataclasses.dataclass
@@ -58,35 +73,88 @@ class SpanRecord:
     # Non-None marks an async "lane" interval (e.g. queue wait) that is
     # exempt from per-thread nesting and exported as Chrome b/e events.
     lane: str | None = None
+    # Device seconds of a device-timed span, once resolved; else None.
+    device_s: float | None = None
 
     def to_dict(self) -> dict:
         return {"name": self.name, "t0": self.t0, "t1": self.t1,
                 "dur_s": self.t1 - self.t0, "thread": self.thread,
-                "lane": self.lane, "attrs": dict(self.attrs)}
+                "lane": self.lane, "attrs": dict(self.attrs),
+                "device_s": self.device_s}
 
 
 class _ActiveSpan:
-    """Mutable handle yielded by ``Tracer.span`` while the span is open."""
+    """A span while it is open: the context manager ``Tracer.span``
+    returns, and the mutable handle it yields."""
 
-    __slots__ = ("name", "t0", "attrs")
+    __slots__ = ("tracer", "name", "t0", "attrs", "device", "stream",
+                 "start")
 
-    def __init__(self, name: str, t0: float, attrs: dict):
+    def __init__(self, tracer: "Tracer", name: str, device, attrs: dict):
+        self.tracer = tracer
         self.name = name
-        self.t0 = t0
+        self.device = device
         self.attrs = attrs
+        self.start = None
 
     def set(self, **attrs) -> None:
         """Attach attributes discovered mid-span (e.g. the chosen plan's
         scheme, known only after planning but ambient for the phases)."""
         self.attrs.update((k, v) for k, v in attrs.items() if v is not None)
 
+    def __enter__(self) -> "_ActiveSpan":
+        tracer = self.tracer
+        stack = tracer._stack()
+        attrs = self.attrs
+        if stack:
+            parent = stack[-1].attrs
+            for k in AMBIENT_ATTRS:
+                if k in parent and k not in attrs:
+                    attrs[k] = parent[k]
+        self.attrs = {k: v for k, v in attrs.items() if v is not None}
+        self.t0 = tracer.now()
+        stack.append(self)
+        if self.device is not None:
+            self.stream = torch.cuda.current_stream(self.device)
+            self.start = tracer._event(self.device)
+            self.start.record(self.stream)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        tracer = self.tracer
+        timed = None
+        if self.start is not None:
+            end = tracer._event(self.device)
+            end.record(self.stream)
+            timed = (self.device, self.start, end)
+        tracer._stack().pop()
+        tracer._finish(SpanRecord(self.name, self.t0, tracer.now(),
+                                  threading.current_thread().name,
+                                  self.attrs), timed)
+        return False
+
+
+class _NoSpan:
+    """What a disabled tracer's ``span`` returns: yields ``None``."""
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
 
 class Tracer:
     """Thread-safe span recorder with an injectable clock.
 
     ``clock`` must be monotonic within one tracer (tests inject fake
-    clocks).  Finished spans are kept in a bounded ring; per-``q_key``
-    indexing serves the structured per-query trace on ``QueryOutcome``.
+    clocks).  Finished spans are kept in a ring of the newest
+    ``max_spans``: the oldest go first, with their per-``q_key`` index
+    entries, and :attr:`dropped` counts them.  Per-``q_key`` indexing
+    serves the structured per-query trace on ``QueryOutcome``.
     """
 
     def __init__(self, clock=time.perf_counter, *, enabled: bool = True,
@@ -95,11 +163,21 @@ class Tracer:
         self.max_spans = int(max_spans)
         self._clock = clock
         self._lock = threading.Lock()
-        self._spans: list[SpanRecord] = []
+        self._spans: collections.deque[SpanRecord] = collections.deque()
         self._dropped = 0
         self._by_key: dict[int, list[SpanRecord]] = {}
         self._local = threading.local()
         self._key_seq = itertools.count(1)
+        # Free CUDA timing events, per device, and the device-timed spans
+        # not yet resolved: (record, device, start event, end event).
+        self._events: dict = {}
+        self._pending: list = []
+
+    @property
+    def dropped(self) -> int:
+        """Spans dropped from the ring, oldest first, since the last
+        ``clear``."""
+        return self._dropped
 
     # -- clocks and keys -----------------------------------------------------
     def now(self) -> float:
@@ -117,34 +195,52 @@ class Tracer:
         return st
 
     # -- recording -----------------------------------------------------------
-    @contextlib.contextmanager
-    def span(self, name: str, **attrs):
-        """Open a nested span on the calling thread.
+    def span(self, name: str, *, device=None, **attrs):
+        """Open a nested span on the calling thread (a context manager).
 
         Yields the active span (``.set(**attrs)`` adds attributes
         mid-flight) or ``None`` when the tracer is disabled.  ``None``
         attribute values are dropped; ambient keys are inherited from the
-        innermost open ancestor on this thread.
+        innermost open ancestor on this thread.  ``device``, a CUDA
+        ``torch.device``, times the span on that device too (its
+        record's ``device_s``, set by :meth:`resolve_device`).
         """
         if not self.enabled:
-            yield None
+            return _NO_SPAN
+        if device is not None and device.type != "cuda":
+            device = None
+        return _ActiveSpan(self, name, device, attrs)
+
+    def _event(self, device):
+        """A CUDA timing event for ``device``, from the pool if it has
+        one.  Where nothing reads the spans, many pending ones are
+        resolved here, so their events come back to the pool."""
+        if len(self._pending) > MAX_PENDING:
+            self.resolve_device()
+        with self._lock:
+            pool = self._events.get(device)
+            if pool:
+                return pool.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def resolve_device(self) -> None:
+        """Set ``device_s`` on the device-timed spans whose closing event
+        the device has passed, and return their events to the pool.  It
+        never waits: a span the device has not passed stays pending for
+        the next call.  :meth:`spans` and :meth:`spans_for` call it."""
+        if not self._pending:
             return
-        stack = self._stack()
-        if stack:
-            parent = stack[-1].attrs
-            for k in AMBIENT_ATTRS:
-                if k in parent and k not in attrs:
-                    attrs[k] = parent[k]
-        attrs = {k: v for k, v in attrs.items() if v is not None}
-        sp = _ActiveSpan(name, self.now(), attrs)
-        stack.append(sp)
-        try:
-            yield sp
-        finally:
-            stack.pop()
-            self._finish(SpanRecord(name, sp.t0, self.now(),
-                                    threading.current_thread().name,
-                                    sp.attrs))
+        with self._lock:
+            pending, self._pending = self._pending, []
+        done, left = [], []
+        for item in pending:
+            (done if item[3].query() else left).append(item)
+        for rec, _, start, end in done:
+            rec.device_s = start.elapsed_time(end) / 1e3
+        with self._lock:
+            self._pending[:0] = left
+            for _, device, start, end in done:
+                self._events.setdefault(device, []).extend((start, end))
 
     def lane(self, name: str, t0: float, t1: float, *,
              lane: str = "queue", **attrs) -> None:
@@ -176,11 +272,16 @@ class Tracer:
         self._finish(SpanRecord(name, t, t,
                                 threading.current_thread().name, attrs))
 
-    def _finish(self, rec: SpanRecord) -> None:
+    def _finish(self, rec: SpanRecord, timed=None) -> None:
         with self._lock:
-            if len(self._spans) >= self.max_spans:
+            if timed is not None:
+                self._pending.append((rec, *timed))
+            if self.max_spans <= 0:
                 self._dropped += 1
                 return
+            if len(self._spans) >= self.max_spans:
+                self._unindex(self._spans.popleft())
+                self._dropped += 1
             self._spans.append(rec)
             key = rec.attrs.get("q_key")
             if key is not None:
@@ -190,8 +291,20 @@ class Tracer:
                     self._by_key.clear()
                 self._by_key.setdefault(key, []).append(rec)
 
+    def _unindex(self, old: SpanRecord) -> None:
+        """Drop a span leaving the ring from the per-query index.  A
+        key's list is in completion order, so the oldest span is first
+        (unless the index was reset since, and it is not there)."""
+        key = old.attrs.get("q_key")
+        recs = self._by_key.get(key) if key is not None else None
+        if recs and recs[0] is old:
+            del recs[0]
+            if not recs:
+                del self._by_key[key]
+
     # -- reading -------------------------------------------------------------
     def spans(self) -> list[SpanRecord]:
+        self.resolve_device()
         with self._lock:
             return list(self._spans)
 
@@ -199,6 +312,7 @@ class Tracer:
         """Structured per-query trace: every finished span stamped with
         this ``q_key``, in completion order (what ``QueryOutcome.trace``
         carries)."""
+        self.resolve_device()
         with self._lock:
             return [r.to_dict() for r in self._by_key.get(key, ())]
 
@@ -245,10 +359,12 @@ class Tracer:
                                "name": r.name, "pid": 1, "tid": tid,
                                "ts": ts + dur})
             else:
+                args = dict(r.attrs)
+                if r.device_s is not None:
+                    args["device_s"] = r.device_s
                 events.append({"ph": "X", "cat": "span", "name": r.name,
                                "pid": 1, "tid": tid_of(r.thread),
-                               "ts": ts, "dur": dur,
-                               "args": dict(r.attrs)})
+                               "ts": ts, "dur": dur, "args": args})
         # Stable order: ascending ts; at equal ts the longer slice first
         # so a parent precedes its children (fake clocks produce ties).
         events.sort(key=lambda e: (e["ts"], -e.get("dur", 0.0)))
