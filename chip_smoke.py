@@ -2,20 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+Builds the port's nine CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once) and holds each integer kernel
 bit for bit against its plain PyTorch version at the main paths' shapes and
 at ragged and wide ones: A (n1+n2), B (n3), C (segmented aggregation),
 D (hash bucket) and E (radix histogram), with A, B and E also at digits of
 17 and 18 bits (past the planner's 16), A at 1-3 bits on ragged and
 unaligned keys, E on clustered pids (sorted runs with out-of-range pids
-inside them, ragged, unaligned, up to 2^17 bins), and ``phj_join`` over
+inside them, ragged, unaligned, up to 2^17 bins), the CSR probe (lookup
+and expand against p2 -> p3 and p4) on its edge cases and at the join
+phase's 2^24 x 2^24 shape, uniform and Zipf-skewed, and ``phj_join`` over
 the pass schedules (17,) and (9, 9) at 2^20 against the join oracle.  Then it drives the port's
 main paths, each with the launch counts set to 0 just before it and read
 just after, and verifies each against a NumPy oracle:
 
 * the join: ``phj_join`` at 2^24 x 2^24 uniform tuples (the paper's
-  default size, §5.1) and ``CoProcessor.phj`` under GPU_ONLY and DD;
+  default size, §5.1) and ``CoProcessor.phj`` under GPU_ONLY and DD,
+  their join phase's probe through the CSR lookup and expand kernels;
 * the group-by: ``CoProcessor.groupby`` over 2^24 tuples with 2^18
   uniform group keys, GPU_ONLY unpartitioned and partitioned, and DD
   partitioned and separate at 2^22 (the C share on the host CPU);
@@ -156,8 +159,10 @@ on the uniform pids of the probe join's packing (the record's row) and on
 the clustered pids of the final headers and on granite's router pids
 (65,536 and 32 into 40 bins; beside it, under ``per_input``);
 F (a TMA ring, a producer warp, six consumer groups) at the probe join's
-layout.  E and F are also timed in a CUDA graph (``graph_ms``), the
-device's time without the host's per-call work.
+layout; the CSR probe (lookup, ``torch.cumsum``, expand) at the join
+phase's shape against p2 -> p3 -> p4, with no library row.  E, F and the
+CSR probe are also timed in a CUDA graph (``graph_ms``), the device's
+time without the host's per-call work.
 
 G's and H's rows of the ``kernels`` record add ``train`` (the kernel and
 its plain backward timed at the training shapes) and every row's
@@ -198,10 +203,13 @@ from repro_torch.core import (PCIE_LINK, CoProcessor,  # noqa: E402
                               radix_partition_scheduled, radix_of,
                               resolve_schedule, uniform_relation,
                               unique_relation)
+from repro_torch.core import hash_table as ht  # noqa: E402
 from repro_torch.core.coprocess import owned_slice  # noqa: E402
 from repro_torch import engine as eng  # noqa: E402
 from repro_torch.kernels._build import build_all  # noqa: E402
 from repro_torch.kernels.agg import agg  # noqa: E402
+from repro_torch.kernels.csr_probe import csr_probe as kcsr  # noqa: E402
+from repro_torch.kernels.csr_probe import ref as csr_ref  # noqa: E402
 from repro_torch.kernels.hash import hash as hsh  # noqa: E402
 from repro_torch.kernels.partition_hist import (  # noqa: E402
     fused, partition_hist, reorder)
@@ -286,6 +294,10 @@ KERNELS = {
     "ssd_intra_chunk": {
         "source": "src/repro_torch/csrc/ssd_intra_chunk.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:40"},
+    # Port-only: the JAX package's probe (p2 -> p3 -> p4) is plain jnp.
+    "csr_probe": {
+        "source": "src/repro_torch/csrc/csr_probe.cu",
+        "replaces": None},
 }
 LM_ARCH = "zamba2_1_2b"     # the one config whose serving runs G and H
 # (batch, prompt, new tokens) of the two served batches: multiples of 128
@@ -326,6 +338,12 @@ REL_G = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 ENCDEC_F32_REL_LIMIT = 1e-4  # decode vs forward_train, whisper in float32
 TOL_H = {torch.float32: 2e-4, torch.bfloat16: 3e-2}   # test_kernels.py:128
 PROBE_BITS = 13             # the planner's (7, 6) schedule at 2^24
+# The CSR probe's check and timing: the PHJ join phase's probe at the main
+# path's shape (2^24 x 2^24 after the (7, 6) schedule, 13 + 9 bits), with
+# the service's max_out at 2^24 (4 n + 1088) and half the pairs, on the
+# uniform pair and on ``csr_probe.ref.zipf_pair`` (S Zipf-skewed, keys of
+# R with 4096 tuples each), after the edge cases ``csr_probe.ref.CASES``.
+CSR_MAX_OUT = 4 * N_MAIN + 1088
 # (P, K, M) of kernel F's check, each on sorted and on permuted rows:
 # P in {1, 16, 2^13} x K in {1, 8, 36, 37, 2304}, a row past the 48 KB
 # default of shared memory, and one longer than shared memory holds at all
@@ -631,6 +649,8 @@ def run_main_path(dev) -> dict:
     log(f"  phj_join wall {wall_ms:.3f} ms (CUDA events), launches {counts}")
     for name in JOIN_KERNELS:
         assert counts[name] > 0, f"main path never launched {name}"
+    # The join phase's probe: the CSR lookup and expand, once each.
+    assert counts["csr_probe"] == 2, counts
     assert res.probe_rid.device.type == "cuda"
     verify(res, exp, "phj_join 2^24 x 2^24")
     return {"schedule": list(sched), "wall_ms": wall_ms, "launches": counts}
@@ -653,6 +673,7 @@ def run_coprocessor(dev) -> dict:
         log(f"  {scheme} n={n}: phases {t.phase_s}, launches {counts}")
         for name in JOIN_KERNELS:
             assert counts[name] > 0, f"{scheme} never launched {name}"
+        assert counts["csr_probe"] == 2, (scheme, counts)
         verify(res, exp, f"CoProcessor.phj {scheme}")
         out[scheme] = {"n": n, "phase_s": t.phase_s, "launches": counts}
     return out
@@ -864,6 +885,66 @@ def check_wide_probe(dev, n: int = 1 << 16) -> dict[str, int]:
     return {"partitioned_probe": e}
 
 
+def csr_probe_inputs(dev, kind: str):
+    """The PHJ join phase's probe at the main path's shape (2^24 x 2^24,
+    the planner's schedule): ``(table, pbkt, S)``."""
+    _, s, table, pbkt = csr_ref.phj_probe_inputs(
+        N_MAIN, kind, resolve_schedule(N_MAIN), device=dev)
+    return table, pbkt, s
+
+
+def csr_probe_err(table, pbkt, key, rid, max_outs) -> int:
+    """The CSR probe kernels against ``csr_lookup_plain`` and
+    ``csr_expand_plain`` at each of ``max_outs``: the largest absolute
+    difference over entry, nmatch, both slot arrays and count."""
+    want_e, want_m = kcsr.csr_lookup_plain(table, pbkt, key)
+    got_e, got_m = kcsr.csr_lookup(table, pbkt, key)
+    err = max(max_abs_diff(got_e, want_e), max_abs_diff(got_m, want_m))
+    del got_e, got_m
+    for mo in max_outs:
+        want = kcsr.csr_expand_plain(table, rid, want_e, want_m, mo)
+        got = kcsr.csr_expand(table, rid, want_e, want_m, mo)
+        for f in ("probe_rid", "build_rid", "count"):
+            err = max(err, max_abs_diff(getattr(got, f).reshape(-1),
+                                        getattr(want, f).reshape(-1)))
+        del want, got
+    torch.cuda.synchronize()
+    return err
+
+
+def check_csr_probe(dev) -> dict[str, int]:
+    """Phases 2-3, continued: the CSR lookup and expand against the plain
+    steps p2 -> p3 and p4, bit for bit, on ``csr_ref.CASES`` and at the
+    main path's shape, uniform and Zipf-skewed."""
+    err = 0
+    for name in csr_ref.CASES:
+        brid, bk, bkt, nb, prid, pk, pbkt, mo = (
+            torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+            for a in csr_ref.csr_case(name))
+        table = ht.table_from_buckets(Relation(brid, bk), bkt, nb)
+        e = csr_probe_err(table, pbkt, pk, prid, (mo,))
+        log(f"  csr case {name}: err={e}")
+        assert e == 0, ("csr_probe", name, e)
+        err = max(err, e)
+    for kind in ("uniform", "zipf"):
+        table, pbkt, s = csr_probe_inputs(dev, kind)
+        _, nmatch = kcsr.csr_lookup(table, pbkt, s.key)
+        total = int(nmatch.sum(dtype=torch.int64))
+        heavy = int(nmatch.max())
+        del nmatch
+        e = csr_probe_err(table, pbkt, s.key, s.rid,
+                          (CSR_MAX_OUT, total // 2))
+        log(f"  csr {kind} n={N_MAIN}, {table.num_buckets} buckets, "
+            f"{total} pairs (most for one probe {heavy}), max_out "
+            f"{CSR_MAX_OUT} and {total // 2}: err={e}")
+        assert e == 0, ("csr_probe", kind, e)
+        assert kind == "uniform" or heavy >= 4096, heavy
+        err = max(err, e)
+        del table, pbkt, s
+        torch.cuda.empty_cache()
+    return {"csr_probe": err}
+
+
 def probe_pairs(qr: torch.Tensor, rid: torch.Tensor) -> np.ndarray:
     """Sorted (probe rid, match rid) pairs of the matched probe slots."""
     hit = rid >= 0
@@ -1012,6 +1093,37 @@ def time_probe_kernel(dev) -> dict:
         "bound_ms": (p * k + 2 * p * m + hits) * 4 / HBM_BYTES_PER_S * 1e3}
     log(f"  partitioned_probe: {row}")
     return {"partitioned_probe": row}
+
+
+def time_csr_probe(dev) -> dict:
+    """Phase 6, continued: the CSR probe (lookup, scan, expand) at the
+    main path's shape on the uniform pair, beside its bytes bound and the
+    plain steps p2 -> p3 -> p4."""
+    table, pbkt, s = csr_probe_inputs(dev, "uniform")
+    mo = CSR_MAX_OUT
+
+    def run():
+        return kcsr.csr_probe_join(table, pbkt, s.key, s.rid, mo)
+
+    def plain():
+        return kcsr.csr_expand_plain(
+            table, s.rid, *kcsr.csr_lookup_plain(table, pbkt, s.key), mo)
+
+    nbytes = kcsr.probe_bytes(N_MAIN, table.num_buckets, table.capacity, mo)
+    row = {
+        "shape": f"n={N_MAIN}, {table.num_buckets} buckets, max_out {mo}, "
+                 f"{int(run().count)} pairs",
+        "ms": cuda_ms(run), "graph_ms": graph_ms(run),
+        "plain_ms": cuda_ms(plain),
+        "library_ms": None, "library": "none: no PyTorch call probes a "
+                                       "hash table",
+        "bound_ms": sum(nbytes.values()) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms_by_step": {k: v / HBM_BYTES_PER_S * 1e3
+                             for k, v in nbytes.items()}}
+    log(f"  csr_probe: {row}")
+    del table, pbkt, s
+    torch.cuda.empty_cache()
+    return {"csr_probe": row}
 
 
 def library_seg_agg(gid: torch.Tensor, val: torch.Tensor, slots: int):
@@ -3425,10 +3537,12 @@ def main() -> int:
         log(smi)
         return 0
 
-    log_phase("[2-3] kernels A-F against their plain versions (bit-exact)")
+    log_phase("[2-3] kernels A-F and the CSR probe against their plain "
+              "versions (bit-exact)")
     err = check_kernels(dev)
     err.update(check_group_kernels(dev))
     err.update(check_probe_kernel(dev))
+    err.update(check_csr_probe(dev))
     for extra in (check_wide_kernels(dev), check_clustered_hist(dev)):
         for name, e in extra.items():
             err[name] = max(err[name], e)
@@ -3498,6 +3612,7 @@ def main() -> int:
     other_times["radix_hist"]["per_input"] += time_router_hist(
         moe["router_pids"], moe["router_parts"])
     other_times.update(time_probe_kernel(dev))
+    other_times.update(time_csr_probe(dev))
     other_times.update(time_lm_kernels(dev))
 
     # Launches: A and B from phj_join (slice 1's path), C, D and E from
@@ -3526,6 +3641,7 @@ def main() -> int:
                "hash_bucket": "groupby_gpu_only_partitioned",
                "radix_hist": "groupby_gpu_only_partitioned",
                "partitioned_probe": "partitioned_probe_join",
+               "csr_probe": "phj_join",
                "flash_attn": "lm_generate", "ssd_intra_chunk": "lm_generate"}
     record = []
     for name, meta in KERNELS.items():

@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels.csr_probe import csr_probe_join
 from .relation import Relation, bucket_of, next_pow2
 
 INVALID = -1
@@ -243,11 +244,11 @@ def probe_p4(table: HashTable, probe_rid: torch.Tensor, entry: torch.Tensor,
 
 def probe_hash_table(rel: Relation, table: HashTable,
                      max_out: int) -> JoinResult:
-    """Full probe phase: p1 -> p2 -> p3 -> p4."""
+    """Full probe phase: p1, then p2 -> p3 -> p4 as ``csr_probe_join``
+    (the CSR lookup and expand kernels on a CUDA device, these steps on
+    the CPU)."""
     bkt = probe_p1(rel.key, table.num_buckets)
-    kstart, kcount = probe_p2(table, bkt)
-    entry, nmatch = probe_p3(table, rel.key, kstart, kcount)
-    return probe_p4(table, rel.rid, entry, nmatch, max_out)
+    return csr_probe_join(table, bkt, rel.key, rel.rid, max_out)
 
 
 # ---------------------------------------------------------------------------

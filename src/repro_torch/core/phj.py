@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.csr_probe import csr_probe_join
 from ..obs.trace import NULL_TRACER
 from . import hash_table as ht
 from .partition import Partitions, partition_n1, partition_n2, partition_n3, \
@@ -131,9 +132,11 @@ def partitioned_join(rel_r: Relation, rel_s: Relation, *, total_bits: int,
     buckets aligned to partitions.  Build on R: its tuples are clustered,
     so the (bucket, key) order inside the build is near-sorted.
 
+    The probe is ``csr_probe_join``: on a CUDA device the lookup and
+    expand kernels (``csrc/csr_probe.cu``), on the CPU p2 -> p3 -> p4.
     ``tracer`` spans the build (``join.build``: bucket ids, b2-b4) and
-    the probe (``join.probe``: bucket ids, p2-p4), device-timed on a
-    CUDA device."""
+    the probe (``join.probe``: bucket ids, lookup, scan, expand),
+    device-timed on a CUDA device."""
     dev = rel_r.key.device
     num_buckets = 1 << (total_bits + shj_bits)
     with tracer.span("join.build", device=dev):
@@ -143,9 +146,7 @@ def partitioned_join(rel_r: Relation, rel_s: Relation, *, total_bits: int,
     with tracer.span("join.probe", device=dev):
         pbkt = partition_bucket_ids(rel_s.key, total_bits=total_bits,
                                     shj_bits=shj_bits)
-        kstart, kcount = ht.probe_p2(table, pbkt)
-        entry, nmatch = ht.probe_p3(table, rel_s.key, kstart, kcount)
-        return ht.probe_p4(table, rel_s.rid, entry, nmatch, max_out)
+        return csr_probe_join(table, pbkt, rel_s.key, rel_s.rid, max_out)
 
 
 def phj_join(build_rel: Relation, probe_rel: Relation, *,

@@ -1,0 +1,253 @@
+// CSR probe: the hash join's probe (steps p2 + p3, then p4) over the CSR
+// hash table of `repro_torch/core/hash_table.py`, as the PHJ join phase
+// (`partitioned_join`), `probe_hash_table` and the variant probes (the
+// lookup alone) run it.
+//
+// Replaces no TPU kernel: the JAX package's probe
+// (`repro/core/hash_table.py`: `probe_p2`, `probe_p3`, `probe_p4`) is plain
+// `jnp`.  It was added because the plain probe held the benchmark's repeat
+// cell: p3 ran a fixed n.bit_length() + 1 = 25 rounds of elementwise torch
+// over every probe tuple where a bucket holds about 4 keys, and p4 searched
+// the offsets once per output slot (2^26 slots at 2^24).
+//
+// Two kernels, with the inclusive scan of the match counts (`torch.cumsum`)
+// between them:
+//   * `csr_lookup_kernel` (p2 + p3): for probe tuple i, the bucket header
+//     (`bstart[b]`, `bcount[b]`, b = bkt[i]) and the leftmost key of the
+//     bucket's list not below key[i] as uint32.  `entry[i]` is that key's
+//     index when it equals key[i], else -1; `nmatch[i]` its rid count, else
+//     0: what `probe_p3` returns, as the lists are sorted as uint32 (and
+//     unique) within a bucket, as `table_from_buckets` builds them.
+//   * `csr_expand_kernel` (p4): probe i writes its nmatch[i] pairs
+//     (rid[i], rids[key_rid_start[entry[i]] + j]) to slots offs[i] -
+//     nmatch[i] + j below max_out; slots [total, max_out) get -1, and
+//     count = min(total, max_out): the `JoinResult` of `probe_p4`, whose
+//     index clamps are kept.
+//
+// Bound: bytes.  At 2^24 x 2^24 with 2^22 buckets and max_out = 2^26 +
+// 1088 the lookup reads S's bucket ids and keys (128 MB), the headers
+// (32 MB) and the key lists and their rid counts (up to 128 MB) and writes
+// entry and nmatch (128 MB): about 416 MB, 0.12 ms at 3.35 TB/s.  The
+// expand reads about 384 MB (nmatch, offsets, entries, rids, rid starts and
+// rid lists) and writes two max_out slot arrays (537 MB): about 920 MB,
+// 0.27 ms.  What the design does about it:
+//   * early exit: a bucket's list is scanned up to 4 keys at a time (their
+//     loads in flight together) and the scan stops at the first key not
+//     below the probe key, so a probe reads about one group of keys, not 25
+//     rounds; a list longer than LINEAR_MAX keys is binary-searched;
+//   * bucket locality: S is clustered by the same low bits as the buckets,
+//     so consecutive probes, and the threads of a block, fall in one
+//     partition, whose 2^9 headers (4 KB) and key list (about 8 KB) the
+//     neighbouring blocks read from L1 and L2: device memory sees each
+//     header and key about once;
+//   * warp-spread heavy lists: a probe with at most HEAVY matches writes
+//     them itself, and neighbouring lanes write neighbouring slots; a
+//     longer rid list is written by the whole warp, 32 slots a round, so a
+//     key that matches thousands of build tuples does not serialise one
+//     thread and its writes stay coalesced;
+//   * the slots past the matches, three quarters of the output at 2^24,
+//     are filled with 16-byte stores.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int GROUP = 4;         // keys of a list in flight together
+constexpr int LINEAR_MAX = 16;   // longer lists are binary-searched
+constexpr int HEAVY = 8;         // longer rid lists are written by the warp
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+__global__ void __launch_bounds__(THREADS) csr_lookup_kernel(
+    const int32_t* __restrict__ bkt, const int32_t* __restrict__ key,
+    const int32_t* __restrict__ bstart, const int32_t* __restrict__ bcount,
+    const int32_t* __restrict__ ukeys, const int32_t* __restrict__ rcount,
+    int32_t* __restrict__ entry, int32_t* __restrict__ nmatch, long long n,
+    long long num_buckets, long long num_keys) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const uint32_t b = static_cast<uint32_t>(__ldg(bkt + i));
+    const uint32_t target = static_cast<uint32_t>(__ldg(key + i));
+    int32_t e = -1, m = 0;
+    if (b < num_buckets) {
+      const int32_t s = __ldg(bstart + b);
+      const int32_t c = __ldg(bcount + b);
+      const int32_t end = s + c;
+      if (c > 0 && s >= 0 && end <= num_keys) {
+        int32_t lo = s;
+        bool found = false;
+        if (c <= LINEAR_MAX) {
+          for (;;) {
+            const int32_t r = end - lo;
+            uint32_t k[GROUP];
+#pragma unroll
+            for (int q = 0; q < GROUP; ++q)
+              k[q] = q < r ? static_cast<uint32_t>(__ldg(ukeys + lo + q)) : 0u;
+            int below = 0;
+#pragma unroll
+            for (int q = 0; q < GROUP; ++q) {
+              below += (q < r && k[q] < target);
+              found |= (q < r && k[q] == target);
+            }
+            lo += below;
+            if (below < GROUP || lo >= end) break;
+          }
+        } else {
+          int32_t hi = end;
+          while (lo < hi) {
+            const int32_t mid = static_cast<int32_t>(
+                (static_cast<uint32_t>(lo) + static_cast<uint32_t>(hi)) >> 1);
+            if (static_cast<uint32_t>(__ldg(ukeys + mid)) < target)
+              lo = mid + 1;
+            else
+              hi = mid;
+          }
+          found = lo < end &&
+                  static_cast<uint32_t>(__ldg(ukeys + lo)) == target;
+        }
+        if (found) {
+          e = lo;
+          m = __ldg(rcount + lo);
+        }
+      }
+    }
+    entry[i] = e;
+    nmatch[i] = m;
+  }
+}
+
+// One output pair at `slot`, below max_out; the rid list index is clamped
+// to the table as `probe_p4` clamps it.
+__device__ __forceinline__ void put(int32_t* __restrict__ out_probe,
+                                    int32_t* __restrict__ out_build,
+                                    const int32_t* __restrict__ rids,
+                                    long long slot, int32_t pr, long long bp,
+                                    long long cap, long long max_out) {
+  if (slot < 0 || slot >= max_out) return;
+  bp = bp < 0 ? 0 : (bp >= cap ? cap - 1 : bp);
+  out_probe[slot] = pr;
+  out_build[slot] = cap > 0 ? __ldg(rids + bp) : -1;
+}
+
+__global__ void __launch_bounds__(THREADS) csr_expand_kernel(
+    const int32_t* __restrict__ prid, const int32_t* __restrict__ entry,
+    const int32_t* __restrict__ nmatch, const int32_t* __restrict__ offs,
+    const int32_t* __restrict__ rstart, const int32_t* __restrict__ rids,
+    int32_t* __restrict__ out_probe, int32_t* __restrict__ out_build,
+    int32_t* __restrict__ count, long long n, long long cap,
+    long long max_out) {
+  const long long total = n > 0 ? __ldg(offs + n - 1) : 0;
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
+  if (tid == 0) *count = static_cast<int32_t>(total < max_out ? total
+                                                               : max_out);
+  const int lane = threadIdx.x & 31;
+  // Warp-uniform trip count: every lane takes part in the ballot.
+  for (long long base = tid - lane; base < n; base += threads) {
+    const long long i = base + lane;
+    int32_t m = 0, pr = 0;
+    long long st = 0, rb = 0;
+    if (i < n) {
+      m = __ldg(nmatch + i);
+      const int32_t o = __ldg(offs + i);
+      pr = __ldg(prid + i);
+      int32_t e = __ldg(entry + i);
+      st = static_cast<long long>(o) - m;
+      if (m > 0 && cap > 0) {
+        e = e < 0 ? 0 : (e >= cap ? static_cast<int32_t>(cap - 1) : e);
+        rb = __ldg(rstart + e);
+      }
+    }
+    const bool heavy = m > HEAVY;
+    if (!heavy)
+      for (int32_t j = 0; j < m; ++j)
+        put(out_probe, out_build, rids, st + j, pr, rb + j, cap, max_out);
+    for (unsigned todo = __ballot_sync(FULL, heavy); todo;
+         todo &= todo - 1) {
+      const int src = __ffs(todo) - 1;
+      const int32_t hm = __shfl_sync(FULL, m, src);
+      const int32_t hp = __shfl_sync(FULL, pr, src);
+      const long long hs = __shfl_sync(FULL, st, src);
+      const long long hb = __shfl_sync(FULL, rb, src);
+      const long long stop =
+          hs + hm < max_out ? static_cast<long long>(hm) : max_out - hs;
+      for (long long j = lane; j < stop; j += 32)
+        put(out_probe, out_build, rids, hs + j, hp, hb + j, cap, max_out);
+    }
+  }
+  // Slots [total, max_out): -1, with 16-byte stores between the 4-aligned
+  // ends a and b (the wrapper's outputs are 16-byte aligned).
+  const long long f0 = total > 0 ? total : 0;
+  if (f0 >= max_out) return;
+  long long a = (f0 + 3) & ~3LL, b = max_out & ~3LL;
+  if (a > b) a = b = max_out;
+  if (tid < 4) {
+    if (f0 + tid < a) out_probe[f0 + tid] = out_build[f0 + tid] = -1;
+    if (b + tid < max_out) out_probe[b + tid] = out_build[b + tid] = -1;
+  }
+  const int4 pad = make_int4(-1, -1, -1, -1);
+  int4* op = reinterpret_cast<int4*>(out_probe);
+  int4* ob = reinterpret_cast<int4*>(out_build);
+  for (long long q = a / 4 + tid; q < b / 4; q += threads) {
+    op[q] = pad;
+    ob[q] = pad;
+  }
+}
+
+int num_sms() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  return sms;
+}
+
+int blocks_for(long long work, long long per_sm) {
+  const long long want = (work + THREADS - 1) / THREADS;
+  const long long cap = per_sm * num_sms();
+  const long long got = want < cap ? want : cap;
+  return static_cast<int>(got > 0 ? got : 1);
+}
+
+}  // namespace
+
+// bkt, key, entry, nmatch: (n,) int32; bstart, bcount: (num_buckets,)
+// int32; ukeys, rcount: (num_keys,) int32.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int csr_lookup(const int32_t* bkt, const int32_t* key,
+                          const int32_t* bstart, const int32_t* bcount,
+                          const int32_t* ukeys, const int32_t* rcount,
+                          int32_t* entry, int32_t* nmatch, long long n,
+                          long long num_buckets, long long num_keys,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  csr_lookup_kernel<<<blocks_for(n, 64), THREADS, 0, s>>>(
+      bkt, key, bstart, bcount, ukeys, rcount, entry, nmatch, n, num_buckets,
+      num_keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// prid, entry, nmatch, offs (the inclusive scan of nmatch): (n,) int32;
+// rstart: (num_keys,) int32; rids: (cap,) int32; out_probe, out_build:
+// (max_out,) int32, 16-byte aligned; count: () int32.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int csr_expand(const int32_t* prid, const int32_t* entry,
+                          const int32_t* nmatch, const int32_t* offs,
+                          const int32_t* rstart, const int32_t* rids,
+                          int32_t* out_probe, int32_t* out_build,
+                          int32_t* count, long long n, long long cap,
+                          long long max_out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long work = n > max_out / 4 ? n : max_out / 4;
+  csr_expand_kernel<<<blocks_for(work, 16), THREADS, 0, s>>>(
+      prid, entry, nmatch, offs, rstart, rids, out_probe, out_build, count, n,
+      cap, max_out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -4,6 +4,7 @@ Kernel sources live in ``repro_torch/csrc`` and are built at first use
 (``_build.py``), never at import.
 """
 from .agg import agg as _agg
+from .csr_probe import csr_probe as _csr
 from .flash_attn import flash_attn as _flash
 from .hash import hash as _hash
 from .partition_hist import (fused as _fused, partition_hist as _hist,
@@ -14,7 +15,7 @@ from .ssd import ssd as _ssd
 _COUNTED = {"partition_hist_fused": _fused, "radix_scatter": _reorder,
             "seg_agg": _agg, "hash_bucket": _hash, "radix_hist": _hist,
             "partitioned_probe": _probe, "flash_attn": _flash,
-            "ssd_intra_chunk": _ssd}
+            "ssd_intra_chunk": _ssd, "csr_probe": _csr}
 
 
 def launch_counts() -> dict[str, int]:

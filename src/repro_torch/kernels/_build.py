@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("partition_hist_fused", "radix_scatter", "seg_agg", "hash_bucket",
-           "radix_hist", "partitioned_probe", "flash_attn", "ssd_intra_chunk")
+           "radix_hist", "partitioned_probe", "flash_attn", "ssd_intra_chunk",
+           "csr_probe")
 
 _lock = threading.Lock()
 _libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}

@@ -1,0 +1,156 @@
+"""The CSR probe: steps p2 + p3 (lookup) and p4 (expand) of the hash
+join's probe over the CSR hash table of ``repro_torch.core.hash_table``,
+as the PHJ join phase (``partitioned_join``), ``probe_hash_table`` and
+the variant probes (the lookup) run it.
+
+On CUDA tensors ``csr_lookup`` and ``csr_expand`` launch
+``csrc/csr_probe.cu``; on CPU tensors they run ``probe_p2`` -> ``probe_p3``
+and ``probe_p4``, unchanged, which are their plain versions.  There is no
+fallback between the two.  ``csr_probe_join`` is the whole probe: lookup,
+the inclusive scan of the match counts (``torch.cumsum``, as ``probe_p4``
+takes it), expand.  Every array equals the plain steps' bit for bit on a
+table that ``table_from_buckets`` built.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+INT32_MAX = 2**31 - 1
+
+launches = 0  # kernel launches since the last reset
+
+
+def csr_lookup_plain(table, bkt: torch.Tensor, key: torch.Tensor):
+    """Plain version: ``probe_p2`` then ``probe_p3``."""
+    # Imported here: repro_torch.core imports the kernels package.
+    from repro_torch.core import hash_table as ht
+
+    kstart, kcount = ht.probe_p2(table, bkt)
+    return ht.probe_p3(table, key, kstart, kcount)
+
+
+def csr_expand_plain(table, probe_rid: torch.Tensor, entry: torch.Tensor,
+                     nmatch: torch.Tensor, max_out: int):
+    """Plain version: ``probe_p4``."""
+    from repro_torch.core import hash_table as ht
+
+    return ht.probe_p4(table, probe_rid, entry, nmatch, max_out)
+
+
+def _check(dev: torch.device, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, the probe on {dev}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D tensor")
+
+
+def _fn(name: str, nargs: int):
+    from .._build import load
+
+    fn = getattr(load("csr_probe"), name)
+    fn.argtypes = [ctypes.c_void_p] * nargs + [ctypes.c_longlong] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _count_launch(err: int, what: str) -> None:
+    from .._build import check
+
+    check(err, what)
+    global launches
+    launches += 1
+
+
+def csr_lookup(table, bkt: torch.Tensor, key: torch.Tensor):
+    """For each probe tuple, its key's entry in bucket ``bkt``'s key list
+    (or -1) and the entry's rid count (or 0): ``probe_p3``'s ``(entry,
+    nmatch)``.  bkt, key: (n,) int32.  Returns two (n,) int32 tensors."""
+    dev = key.device
+    if dev.type == "cpu":
+        return csr_lookup_plain(table, bkt, key)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check(dev, bkt=bkt, key=key, bucket_key_start=table.bucket_key_start,
+           bucket_key_count=table.bucket_key_count, ukeys=table.ukeys,
+           key_rid_count=table.key_rid_count)
+    n = key.shape[0]
+    if bkt.shape[0] != n:
+        raise ValueError(f"bkt has {bkt.shape[0]} ids, key {n}")
+    fn = _fn("csr_lookup", 8)
+    entry = torch.empty(n, dtype=torch.int32, device=dev)
+    nmatch = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(bkt.data_ptr(), key.data_ptr(),
+                 table.bucket_key_start.data_ptr(),
+                 table.bucket_key_count.data_ptr(), table.ukeys.data_ptr(),
+                 table.key_rid_count.data_ptr(), entry.data_ptr(),
+                 nmatch.data_ptr(), n, table.num_buckets,
+                 table.ukeys.shape[0], stream)
+    _count_launch(err, "csr_lookup")
+    return entry, nmatch
+
+
+def csr_expand(table, probe_rid: torch.Tensor, entry: torch.Tensor,
+               nmatch: torch.Tensor, max_out: int):
+    """The matching ``(probe_rid, build_rid)`` pairs in probe order, then
+    rid-list order, truncated at ``max_out`` slots and padded with -1:
+    ``probe_p4``'s ``JoinResult``.  probe_rid, entry, nmatch: (n,) int32,
+    ``(entry, nmatch)`` as ``csr_lookup`` gives them."""
+    from repro_torch.core.hash_table import JoinResult
+
+    dev = probe_rid.device
+    if dev.type == "cpu":
+        return csr_expand_plain(table, probe_rid, entry, nmatch, max_out)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check(dev, probe_rid=probe_rid, entry=entry, nmatch=nmatch,
+           key_rid_start=table.key_rid_start, rids=table.rids)
+    n = probe_rid.shape[0]
+    if entry.shape[0] != n or nmatch.shape[0] != n:
+        raise ValueError(f"entry {entry.shape[0]} and nmatch "
+                         f"{nmatch.shape[0]} for {n} probe tuples")
+    if not 0 <= max_out <= INT32_MAX:
+        raise ValueError(f"max_out must lie in [0, 2^31): {max_out}")
+    fn = _fn("csr_expand", 9)
+    offs = torch.cumsum(nmatch, 0, dtype=torch.int32)
+    out_probe = torch.empty(max_out, dtype=torch.int32, device=dev)
+    out_build = torch.empty(max_out, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(probe_rid.data_ptr(), entry.data_ptr(), nmatch.data_ptr(),
+                 offs.data_ptr(), table.key_rid_start.data_ptr(),
+                 table.rids.data_ptr(), out_probe.data_ptr(),
+                 out_build.data_ptr(), count.data_ptr(), n, table.capacity,
+                 max_out, stream)
+    _count_launch(err, "csr_expand")
+    return JoinResult(out_probe, out_build, count)
+
+
+def probe_bytes(n: int, num_buckets: int, capacity: int,
+                max_out: int) -> dict[str, int]:
+    """Bytes each step of ``csr_probe_join`` moves for ``n`` probe tuples
+    against a table of ``num_buckets`` buckets and ``capacity`` tuples:
+    the lookup reads the bucket ids, keys, headers and (at most) every key
+    and rid count and writes entry and nmatch; the scan reads nmatch and
+    writes the offsets; the expand reads the probe rids, entries, counts
+    and offsets, the rid starts and lists, and writes both slot arrays."""
+    return {"lookup": 8 * n + 8 * num_buckets + 8 * capacity + 8 * n,
+            "scan": 8 * n,
+            "expand": 16 * n + 8 * capacity + 8 * max_out}
+
+
+def csr_probe_join(table, bkt: torch.Tensor, key: torch.Tensor,
+                   rid: torch.Tensor, max_out: int):
+    """The whole probe of the tuples ``(rid, key)`` with bucket ids
+    ``bkt`` against ``table``: p2 -> p3 -> p4 as one lookup and one
+    expand (two launches on a CUDA device)."""
+    entry, nmatch = csr_lookup(table, bkt, key)
+    return csr_expand(table, rid, entry, nmatch, max_out)

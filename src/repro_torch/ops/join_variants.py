@@ -22,6 +22,7 @@ import torch
 from ..core import hash_table as ht
 from ..core.coprocess import CoProcessor, Timing
 from ..core.relation import Relation
+from ..kernels.csr_probe import csr_lookup
 
 JOIN_KINDS = ("inner", "semi", "anti", "left_outer")
 NULL_RID = ht.INVALID   # -1: build side of an unmatched outer row
@@ -83,7 +84,8 @@ def _probe_p4_outer(table: ht.HashTable, probe_rid: torch.Tensor,
 
 def probe_hash_table_variant(rel: Relation, table: ht.HashTable,
                              max_out: int, kind: str) -> ht.JoinResult:
-    """Full probe phase under variant semantics (p1 -> p2 -> p3 -> emit).
+    """Full probe phase under variant semantics (p1 -> p2 -> p3 -> emit),
+    p2 + p3 as ``csr_lookup`` (its kernel on a CUDA device).
 
     Pad tuples (``rid == INVALID``) are never emitted; in particular they
     do not count as "unmatched" for anti/left_outer.
@@ -93,8 +95,7 @@ def probe_hash_table_variant(rel: Relation, table: ht.HashTable,
     if kind == "inner":
         return ht.probe_hash_table(rel, table, max_out)
     bkt = ht.probe_p1(rel.key, table.num_buckets)
-    kstart, kcount = ht.probe_p2(table, bkt)
-    entry, nmatch = ht.probe_p3(table, rel.key, kstart, kcount)
+    entry, nmatch = csr_lookup(table, bkt, rel.key)
     valid_row = rel.rid != ht.INVALID
     if kind == "semi":
         return _emit_flagged(rel.rid, (nmatch > 0) & valid_row, max_out)

@@ -10,9 +10,13 @@ import torch
 import repro_torch.configs as tconfigs
 import repro_torch.core as tc
 import repro_torch.ops as tops  # (attaches CoProcessor.groupby)
+from repro_torch.core import hash_table as ht
 from repro_torch.core import interop
+from repro_torch.core.phj import partitioned_join
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.agg import agg
+from repro_torch.kernels.csr_probe import csr_probe as kcsr
+from repro_torch.kernels.csr_probe import ref as csr_ref
 from repro_torch.kernels.hash import hash as hsh
 from repro_torch.kernels.partition_hist import (fused, partition_hist,
                                                 reorder)
@@ -78,14 +82,139 @@ def test_phj_join_on_card_equals_cpu(dev, kind):
     got = tc.phj_join(b.to(dev), p.to(dev), max_out=mo)
     passes = len(tc.resolve_schedule(n))
     # D: the final headers' pids and the join's bucket ids, per relation;
-    # E: the final headers' histogram, per relation.
+    # E: the final headers' histogram, per relation; the CSR probe's
+    # lookup and expand once each.
     assert launch_counts() == {"partition_hist_fused": 2 * passes,
                                "radix_scatter": 2 * passes, "seg_agg": 0,
                                "hash_bucket": 4, "radix_hist": 2,
                                "partitioned_probe": 0, "flash_attn": 0,
-                               "ssd_intra_chunk": 0}
+                               "ssd_intra_chunk": 0, "csr_probe": 2}
     for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
         assert np.array_equal(w, g)
+
+
+def _same_result(got, want) -> None:
+    for f in ("probe_rid", "build_rid", "count"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("name", csr_ref.CASES)
+def test_csr_probe_kernels_match_plain_steps(dev, name):
+    brid, bk, bkt, nb, prid, pk, pbkt, mo = csr_ref.csr_case(name)
+    brid, bk, bkt, prid, pk, pbkt = (torch.from_numpy(a).to(dev) for a in
+                                     (brid, bk, bkt, prid, pk, pbkt))
+    table = ht.table_from_buckets(tc.Relation(brid, bk), bkt, nb)
+    entry, nmatch = kcsr.csr_lookup_plain(table, pbkt, pk)
+    want = kcsr.csr_expand_plain(table, prid, entry, nmatch, mo)
+    reset_launch_counts()
+    got_entry, got_nmatch = kcsr.csr_lookup(table, pbkt, pk)
+    got = kcsr.csr_probe_join(table, pbkt, pk, prid, mo)
+    torch.cuda.synchronize()
+    assert launch_counts()["csr_probe"] == 3
+    assert torch.equal(got_entry, entry) and torch.equal(got_nmatch, nmatch)
+    _same_result(got, want)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "zipf"])
+def test_csr_probe_at_2_24_matches_plain_steps(dev, kind):
+    """The cells' shapes: 2^24 x 2^24 after one 13-bit pass, 9 bucket
+    bits, ``max_out`` 4 n + 1088 and half the pairs; uniform, and a
+    Zipf-skewed S whose keys at three ranks match 4096 build tuples
+    each.  ``partitioned_join`` launches the lookup and the expand once
+    each (and D for S's bucket ids), and equals the plain steps."""
+    n, bits, shj = 1 << 24, 13, 9
+    r, s, table, pbkt = csr_ref.phj_probe_inputs(n, kind, (bits,),
+                                                 device=dev)
+    assert table.num_buckets == 1 << (bits + shj)
+    entry, nmatch = kcsr.csr_lookup_plain(table, pbkt, s.key)
+    got_entry, got_nmatch = kcsr.csr_lookup(table, pbkt, s.key)
+    assert torch.equal(got_entry, entry) and torch.equal(got_nmatch, nmatch)
+    if kind == "zipf":
+        assert int(nmatch.max()) >= 4096
+    mo = 4 * n + 1088
+    total = int(nmatch.sum(dtype=torch.int64))
+    for max_out in (mo, total // 2):
+        want = kcsr.csr_expand_plain(table, s.rid, entry, nmatch, max_out)
+        _same_result(kcsr.csr_expand(table, s.rid, entry, nmatch, max_out),
+                     want)
+    del got_entry, got_nmatch
+    reset_launch_counts()
+    got = partitioned_join(r, s, total_bits=bits, shj_bits=shj, max_out=mo)
+    counts = launch_counts()
+    assert counts["csr_probe"] == 2 and counts["hash_bucket"] == 2, counts
+    _same_result(got, kcsr.csr_expand_plain(table, s.rid, entry, nmatch, mo))
+    assert int(got.count) == total < mo
+
+
+@pytest.mark.parametrize("name", csr_ref.CASES)
+def test_table_probes_on_card_match_plain_steps(dev, name):
+    """``probe_hash_table`` and the four variant probes on the card (the
+    CSR kernels: lookup and expand, the lookup alone for semi, anti and
+    left-outer) equal the same on the CPU (the plain steps)."""
+    brid, bk, _, nb, prid, pk, _, mo = csr_ref.csr_case(name)
+    t = torch.from_numpy
+    table = ht.build_hash_table(tc.Relation(t(brid), t(bk)), nb)
+    rel = tc.Relation(t(prid), t(pk))
+    gtable, grel = table.to(dev), rel.to(dev)
+    reset_launch_counts()
+    got = [ht.probe_hash_table(grel, gtable, mo)] + [
+        tops.join_variants.probe_hash_table_variant(grel, gtable, mo, kind)
+        for kind in tops.join_variants.JOIN_KINDS]
+    torch.cuda.synchronize()
+    assert launch_counts()["csr_probe"] == 2 + 2 + 3
+    want = [ht.probe_hash_table(rel, table, mo)] + [
+        tops.join_variants.probe_hash_table_variant(rel, table, mo, kind)
+        for kind in tops.join_variants.JOIN_KINDS]
+    for g, w in zip(got, want):
+        _same_result(g.to("cpu"), w)
+
+
+def test_phj_query_launches_match_the_roofline_model(dev):
+    """One PHJ query through ``CoProcessor.phj`` on the card, cold and with
+    both layouts given: its launch counters equal the launch model that
+    ``kernels.phj_roofline`` reads (``bench/roofline.py``), and the join
+    phase's probe adds the lookup and the expand, which the model leaves
+    out."""
+    from collections import Counter
+
+    from bench import roofline as rl
+
+    n, sched = 1 << 20, (7, 6)
+    b = tc.uniform_relation(n, seed=1, device=dev)
+    p = tc.uniform_relation(n, seed=2, device=dev)
+    cp = tc.CoProcessor("cpu", dev)
+    kw = dict(schedule=sched, shj_bits=2, max_out=4 * n + 1088,
+              partition_ratio=0.0, join_ratio=0.0)
+    parts = {}
+    for hit in (False, True):
+        given = (dict(build_parts=parts["R"], probe_parts=parts["S"])
+                 if hit else dict(parts_out=parts))
+        reset_launch_counts()
+        cp.phj(b, p, **kw, **given)
+        counts = launch_counts()
+        model = Counter(k for k, _ in rl.phj_query_launches(
+            n, n, sched, partition_ratio=0.0, join_ratio=0.0,
+            build_layout_hit=hit, probe_layout_hit=hit))
+        assert +model == +Counter({k: counts[c]
+                                   for k, c in rl.COUNTER_OF.items()}), \
+            (hit, dict(model), counts)
+        assert counts["csr_probe"] == 2, counts
+
+
+def test_csr_probe_wrappers_reject_bad_inputs(dev):
+    brid, bk, bkt, nb, prid, pk, pbkt, mo = csr_ref.csr_case("truncated")
+    table = ht.table_from_buckets(
+        tc.Relation(torch.from_numpy(brid), torch.from_numpy(bk)),
+        torch.from_numpy(bkt), nb).to(dev)
+    key = torch.from_numpy(pk).to(dev)
+    with pytest.raises(TypeError):
+        kcsr.csr_lookup(table, torch.from_numpy(pbkt).to(dev).long(), key)
+    with pytest.raises(ValueError):
+        kcsr.csr_lookup(table, torch.from_numpy(pbkt), key)
+    with pytest.raises(ValueError):
+        kcsr.csr_expand(table, key, key, key[:-1], mo)
+    with pytest.raises(ValueError):
+        kcsr.csr_expand(table, key, key, key, 2**31)
 
 
 def test_coprocessor_dd_on_card_equals_cpu(dev):

@@ -2,13 +2,15 @@
 
     python3 tools/profile_torch_phj.py [--n 16777216] [--trace-dir reports/torch]
     python3 tools/profile_torch_phj.py --paths [--n 16777216] [--reps 5]
+    python3 tools/profile_torch_phj.py --csr [--n 16777216] [--reps 5]
 
 Runs ``phj_join`` on two uniform relations of ``n`` tuples (seeds 1 and
 2, the planner's schedule) and reports:
 
 * a step breakdown from CUDA events: each partition pass of R and S, the
   final headers, and the join's bucket ids, build (b2 sorts, b3 key
-  lists) and probe (p2, p3, p4), each timed alone after a warm-up;
+  lists) and probe (the CSR lookup, then the scan and the expand), each
+  timed alone after a warm-up;
 * a ``torch.profiler`` trace of one whole ``phj_join``: device time per
   kernel name (top 15) and the device's busy share of the wall time
   (kernel time summed over the wall time; overlap would count twice, and
@@ -38,8 +40,19 @@ comes after a warm-up call:
 * ``phj_join``: one call (``call_ms``), then, last in the process, its
   device-busy time under the profiler.
 
-Prints the card's name and power limit first and, with ``--paths``, a
-JSON object of every number last.  Needs a CUDA card.
+With ``--csr`` it times the PHJ join phase's probe as the benchmark's
+cells run it (one 13-bit pass, 9 bucket bits, ``max_out`` the service's
+4 n + 1024, rounded up to 8, + 64) on two inputs: the uniform pair and a
+Zipf-skewed S against a uniform R whose keys at three of S's ranks hold
+4096 tuples each (``csr_probe.ref.zipf_pair``).  On each it checks the
+CSR probe kernels against the plain steps p2 -> p3 -> p4, bit for bit,
+and reports the plain steps' times (``call_ms``), the whole
+``csr_probe_join`` back to back (``cuda_ms``) and in a CUDA graph, and
+the profiler's device time per kernel of one call (lookup, the scan,
+expand) beside their byte bounds.
+
+Prints the card's name and power limit first and, with ``--paths`` or
+``--csr``, a JSON object of every number last.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -66,6 +79,8 @@ from repro_torch.core import (CoProcessor, Relation,  # noqa: E402
 from repro_torch.core.partition import _headers, partition_pass  # noqa: E402
 from repro_torch.core.phj import partition_bucket_ids  # noqa: E402
 from repro_torch.kernels._build import build_all  # noqa: E402
+from repro_torch.kernels.csr_probe import csr_probe as csr  # noqa: E402
+from repro_torch.kernels.csr_probe import ref as csr_ref  # noqa: E402
 from repro_torch.kernels.hash import hash as hsh  # noqa: E402
 from repro_torch.kernels.partition_hist import partition_hist  # noqa: E402
 from repro_torch.kernels.probe import ops as pops  # noqa: E402
@@ -104,14 +119,11 @@ def breakdown(build, probe, sched, shj_bits, max_out) -> list[tuple]:
         lambda: (ht.build_b3_keylists(bkt[order], r.key[order], nb),
                  ht.build_b4_ridlists(r.rid, order)))))
     table = ht.table_from_buckets(r, bkt, nb)
-    rows.append(("probe p2 (bucket headers)",
-                 call_ms(lambda: ht.probe_p2(table, pbkt))))
-    kstart, kcount = ht.probe_p2(table, pbkt)
-    rows.append(("probe p3 (binary search)", call_ms(
-        lambda: ht.probe_p3(table, s.key, kstart, kcount))))
-    entry, nmatch = ht.probe_p3(table, s.key, kstart, kcount)
-    rows.append(("probe p4 (expand to pairs)", call_ms(
-        lambda: ht.probe_p4(table, s.rid, entry, nmatch, max_out))))
+    rows.append(("probe lookup (p2 + p3)",
+                 call_ms(lambda: csr.csr_lookup(table, pbkt, s.key))))
+    entry, nmatch = csr.csr_lookup(table, pbkt, s.key)
+    rows.append(("probe scan + expand (p4)", call_ms(
+        lambda: csr.csr_expand(table, s.rid, entry, nmatch, max_out))))
     return rows
 
 
@@ -206,11 +218,61 @@ def paths(n: int, reps: int) -> dict:
     return out
 
 
+HBM_BYTES_PER_S = 3.35e12
+
+
+def csr_numbers(n: int, reps: int) -> dict:
+    """The ``--csr`` numbers (see the module's docstring)."""
+    build_all(("hash_bucket", "partition_hist_fused", "radix_scatter",
+               "radix_hist", "csr_probe"))
+    bits = PROBE_BITS
+    shj_bits = max(0, phj_bucket_count(n, bits).bit_length() - 1)
+    max_out = ((4 * n + 1024 + 7) // 8) * 8 + 64
+    out = {"n": n, "bits": bits, "shj_bits": shj_bits, "max_out": max_out}
+    for kind in ("uniform", "zipf"):
+        r, s, table, pbkt = csr_ref.phj_probe_inputs(n, kind, (bits,),
+                                                     device="cuda")
+        entry, nmatch = csr.csr_lookup(table, pbkt, s.key)
+        kstart, kcount = ht.probe_p2(table, pbkt)
+        pentry, pnmatch = ht.probe_p3(table, s.key, kstart, kcount)
+        got = csr.csr_probe_join(table, pbkt, s.key, s.rid, max_out)
+        want = ht.probe_p4(table, s.rid, pentry, pnmatch, max_out)
+        same = (torch.equal(entry, pentry) and torch.equal(nmatch, pnmatch)
+                and all(torch.equal(getattr(got, f), getattr(want, f))
+                        for f in ("probe_rid", "build_rid", "count")))
+        res = {"bit_exact": same, "pairs": int(want.count),
+               "max_rid_list": int(table.key_rid_count.max()),
+               "max_nmatch": int(pnmatch.max())}
+        del got, want, kstart, kcount, pentry, pnmatch
+        res["plain_lookup_ms"] = call_ms(lambda: ht.probe_p3(
+            table, s.key, *ht.probe_p2(table, pbkt)), reps)
+        res["plain_expand_ms"] = call_ms(lambda: ht.probe_p4(
+            table, s.rid, entry, nmatch, max_out), reps)
+
+        def run():
+            return csr.csr_probe_join(table, pbkt, s.key, s.rid, max_out)
+        res["csr_probe_join_ms"] = cuda_ms(run, reps=20, warmup=3)
+        res["csr_probe_join_graph_ms"] = graph_ms(run)
+        _, rows, busy_ms, _ = device_profile(run)
+        res["device_ms"] = busy_ms
+        for e in rows:
+            res[f"kernel_ms[{e.key[:60]}]"] = _dev_us(e) / 1e3
+        for step, b in csr.probe_bytes(n, table.num_buckets, table.capacity,
+                                       max_out).items():
+            res[f"{step}_bound_ms"] = b / HBM_BYTES_PER_S * 1e3
+        out[kind] = res
+        print(kind, json.dumps(res), flush=True)
+        del table, r, s, pbkt, entry, nmatch
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1 << 24)
     ap.add_argument("--trace-dir", default="reports/torch")
     ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--csr", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -221,6 +283,11 @@ def main() -> int:
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip())
     n = args.n
+    if args.csr:
+        out = csr_numbers(n, args.reps)
+        print(json.dumps({"card": smi.stdout.strip(), **out}))
+        return 0 if all(out[k]["bit_exact"] for k in ("uniform", "zipf")) \
+            else 1
     if args.paths:
         print(f"tree {ROOT}", flush=True)
         out = paths(n, args.reps)
