@@ -26,9 +26,16 @@ cause taxonomy:
     bytes are attributed but — as everywhere in this repo — *not*
     counted as intermediate traffic.
 
+The port adds one cause of its own (``PORT_CAUSES``), reported by
+``by_cause`` and ``summary`` once it has been recorded:
+
+  * ``scan_upload``   — base-table columns a pipeline's scan views upload
+    to the G group's device (``_ScanView.raw_chain``).  Every query reads
+    its base tables; this is input, not intermediate traffic.
+
 The flat ``host_bytes_moved`` counter is now a **sum view over the
 ledger**: :meth:`TransferLedger.record` increments it for every
-intermediate cause (everything except ``result``), so existing gates and
+intermediate cause (``INTERMEDIATE_CAUSES``), so existing gates and
 tests keep their exact semantics while gaining attribution underneath.
 """
 from __future__ import annotations
@@ -41,6 +48,9 @@ CAUSES = ("fingerprint", "multicol_pack", "handoff", "result")
 #: ``result`` is excluded — final result delivery has never been counted
 #: as intermediate traffic (the fused path's invariant).
 INTERMEDIATE_CAUSES = ("fingerprint", "multicol_pack", "handoff")
+
+#: The port's causes beyond the JAX package's taxonomy (not intermediate).
+PORT_CAUSES = ("scan_upload",)
 
 DIRECTIONS = ("h2d", "d2h")
 
@@ -69,9 +79,9 @@ class TransferLedger:
         series for all causes — the flat counter is a sum view over the
         ledger by construction, never a separately-maintained number.
         """
-        if cause not in CAUSES:
+        if cause not in CAUSES + PORT_CAUSES:
             raise ValueError(f"unknown transfer cause {cause!r} "
-                             f"(want one of {CAUSES})")
+                             f"(want one of {CAUSES + PORT_CAUSES})")
         if direction not in DIRECTIONS:
             raise ValueError(f"unknown transfer direction {direction!r}")
         n = int(nbytes)
@@ -91,7 +101,7 @@ class TransferLedger:
         if self._metrics is not None:    # registry lock is a leaf lock
             self._metrics.inc("host_transfer_bytes", n,
                               cause=cause, direction=direction)
-            if cause != "result":
+            if cause in INTERMEDIATE_CAUSES:
                 self._metrics.inc("host_bytes_moved", n)
 
     # -- readers -------------------------------------------------------------
@@ -107,7 +117,7 @@ class TransferLedger:
         out = {c: 0 for c in CAUSES}
         with self._lock:
             for (_, _, cause, _), (b, _) in self._agg.items():
-                out[cause] += b
+                out[cause] = out.get(cause, 0) + b
         return out
 
     def by_stage(self) -> dict[str, dict[str, int]]:
@@ -132,7 +142,7 @@ class TransferLedger:
         by_direction = {d: 0 for d in DIRECTIONS}
         crossings = 0
         for (_, _, cause, direction), (b, n) in items:
-            by_cause[cause] += b
+            by_cause[cause] = by_cause.get(cause, 0) + b
             by_direction[direction] += b
             crossings += n
         intermediate = sum(by_cause[c] for c in INTERMEDIATE_CAUSES)

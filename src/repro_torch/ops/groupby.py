@@ -24,9 +24,13 @@ the host (the paper's separate-tables-plus-merge mode, Fig. 3).
 
 Sums are exact int64 by default, carried through the device path as the
 kernel's wide int32 channels and decoded on the device; ``wrap32=True``
-keeps the legacy wrapping int32 accumulator.  The C group is the host
-CPU, so both ratios are required: a call never lands on the CPU unless it
-says so.
+keeps the legacy wrapping int32 accumulator.  The values are int32, or
+int64 (a query's expression, widened so it is exact): an int64 value
+``v`` goes through the kernel as two int32 words, ``v >> 32`` and the low
+word less 2^31, whose exact sums recombine as ``2^32 hi + lo + 2^31
+count``; min and max are then not taken (they read the neutral values).
+The C group is the host CPU, so both ratios are required: a call never
+lands on the CPU unless it says so.
 """
 from __future__ import annotations
 
@@ -84,7 +88,9 @@ def grouped_agg(rel: Relation, values: torch.Tensor, *, num_slots: int,
     ``(ukeys, count, sum, min, max, num_groups)`` — slot ``g`` holds the
     ``g``-th distinct key in uint32 order; slots past ``num_groups``
     report count 0.  ``sum`` is the kernel's wide-channel layout by
-    default or a wrapping int32 vector under ``wrap32=True``.
+    default or a wrapping int32 vector under ``wrap32=True``; int64
+    ``values`` give an exact int64 ``sum`` vector (two kernel calls, one
+    a word) and neutral ``min`` / ``max``.
     """
     n, dev = rel.size, rel.device
     # uint32 order: flipping the sign bit maps it onto int32 order, so a
@@ -101,21 +107,33 @@ def grouped_agg(rel: Relation, values: torch.Tensor, *, num_slots: int,
                        device=dev)
     # Equal keys share a slot and write equal values: any writer wins.
     ukeys[gid.clamp(0, num_slots - 1).to(torch.int64)] = skey
-    cnt, sm, mn, mx = segmented_aggregate(
-        torch.where(valid, gid, -1), svals, num_slots=num_slots,
-        wrap32=wrap32)
+    gid = torch.where(valid, gid, -1)
+    if svals.dtype == torch.int64:
+        hi = (svals >> 32).to(torch.int32)
+        lo = ((svals & 0xFFFFFFFF) - 2**31).to(torch.int32)
+        cnt, sm_hi, _, _ = segmented_aggregate(gid, hi, num_slots=num_slots)
+        _, sm_lo, _, _ = segmented_aggregate(gid, lo, num_slots=num_slots)
+        sm = ((wide_sums_to_int64_tensor(sm_hi) << 32)
+              + wide_sums_to_int64_tensor(sm_lo)
+              + (cnt.to(torch.int64) << 31))
+        mn = torch.full_like(cnt, INT32_MAX)
+        mx = torch.full_like(cnt, INT32_MIN)
+    else:
+        cnt, sm, mn, mx = segmented_aggregate(gid, svals,
+                                              num_slots=num_slots,
+                                              wrap32=wrap32)
     num_groups = (first & valid).sum(dtype=torch.int32)
     return ukeys, cnt, sm, mn, mx, num_groups
 
 
 def _gather_values(values: torch.Tensor, rid: torch.Tensor) -> torch.Tensor:
     """values[rid] with pad rows (rid == -1) mapped to 0, gathered on the
-    device that holds ``values``."""
+    device that holds ``values``, in their dtype."""
     r = rid.to(values.device)
     if values.shape[0] == 0:
-        return torch.zeros_like(r)
+        return torch.zeros_like(r, dtype=values.dtype)
     out = values[r.clamp(0, values.shape[0] - 1)]
-    return torch.where(r >= 0, out, 0).to(torch.int32)
+    return torch.where(r >= 0, out, 0).to(values.dtype)
 
 
 def _merge_partials(a: GroupByResult, b: GroupByResult) -> GroupByResult:
@@ -176,20 +194,23 @@ def groupby_coprocessed(cp: CoProcessor, rel: Relation, values, *,
 
     ``rel.rid`` must index rows of ``values`` (the arange gather
     convention); rid ``INVALID`` marks pad tuples.  ``values`` is a NumPy
-    array or a tensor; a NumPy column goes to ``rel``'s device first, and
-    the gathers run where the values lie.  ``partition_ratio`` is the C
-    share of the partition passes and ``agg_ratio`` of the reduce (both
-    required: C is the host CPU).  Sums are exact int64 unless
+    array or a tensor, int32 or int64 (``grouped_agg``); a NumPy column
+    goes to ``rel``'s device first, and the gathers run where the values
+    lie.  ``partition_ratio`` is the C share of the partition passes and
+    ``agg_ratio`` of the reduce (both required: C is the host CPU).  Sums are exact int64 unless
     ``wrap32=True``.  ``ctx`` (a ``QueryContext``) makes the partition
     phase preemptible — pass-at-a-time with ``ctx.check`` at every
     boundary and once more before the aggregate phase.
     """
     timing = Timing(tracer=cp.tracer)
-    if isinstance(values, torch.Tensor):
-        values = values.to(torch.int32)
-    else:
-        values = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(values, dtype=np.int32))).to(rel.device)
+    if not isinstance(values, torch.Tensor):
+        values = torch.from_numpy(np.ascontiguousarray(values)).to(
+            rel.device)
+    values = values.to(torch.int64 if values.dtype == torch.int64
+                       else torch.int32)
+    if wrap32 and values.dtype == torch.int64:
+        raise ValueError("wrap32 sums int32 values; int64 values sum "
+                         "exactly")
     if rel.size == 0:
         timing.phase_s["partition"] = 0.0
         timing.phase_s["agg"] = 0.0

@@ -23,7 +23,8 @@ g_device="cpu"))``.
 """
 from .executor import PipelineExecutor, PipelineResult, StageView
 from .optimize import JoinOrderOptimizer, PhysicalPlan, PipelineStage
-from .plan import (JOIN_KINDS, NULL_VALUE, Filter, Join, Query, Table,
+from .plan import (EXPR_OPS, JOIN_KINDS, NULL_VALUE, Filter, Join, Query,
+                   Table,
                    agg_output_name, apply_aggregate, apply_group_by,
                    make_chain_query, make_star_query, reference_execute,
                    reference_rows, rows_array)

@@ -28,7 +28,8 @@ Base tables are NumPy columns on the host.  The fused path uploads each
 raw column it reads to the G group's device once per scan view, before
 any gather: every chain gather, key column and stage relation then lies
 on the card (``IndexChain.gather`` of a host column would gather on the
-host).
+host).  The uploads are the ledger's ``scan_upload`` bytes, and each
+base column's SHA-1 (``col_fp``, on a memo miss) a ``scan.fp`` span.
 
 Scan fusion: filtered base tables are NOT materialized before their first
 join.  A ``_ScanView`` computes the filter's surviving row index once and
@@ -43,7 +44,12 @@ stage NULL-fills (``NULL_VALUE``) the build columns of unmatched rows,
 carried as a device NULL mask that composes through later gathers.  A
 ``group_by`` query ends in one more engine submission — a ``GroupByQuery``
 through the same admission queue — whose key/value inputs the fused path
-hands over as device tensors (the sink consumes the view).
+hands over as device tensors (the sink consumes the view).  A sum over an
+expression (``plan.EXPR_OPS``) is evaluated in int64 on the view's device
+from its two operand columns, in either sink: a scalar sink sums it
+there, a grouped one hands the int64 values to the group-by, whose
+kernel F sums them exactly as two int32 words.  Each sink runs in a
+``sink`` span (``kind`` scalar / grouped, ``rows`` in).
 
 Reuse falls out of the engine untouched: a stage's build side is
 fingerprinted like any other query, so a dimension table shared by many
@@ -78,11 +84,11 @@ import torch
 
 from ..core.relation import IndexChain, Relation, next_pow2, take_fill
 from ..engine.service import GroupByQuery, JoinQuery, JoinQueryService
-from ..obs import q_error
+from ..obs import NULL_TRACER, q_error
 
 from .optimize import JoinOrderOptimizer, PhysicalPlan
 from .plan import (NULL_VALUE, Query, agg_output_name, apply_aggregate,
-                   rows_array)
+                   evaluate, rows_array)
 
 # Filler keys for padding tiny/empty stage inputs up to a minimum size.
 # Distinct negative values per side: they match neither real keys (>= 0)
@@ -103,10 +109,11 @@ class _ScanView:
     as a whole intermediate.  ``raw_chain``/``col_dev`` are the
     device-resident face of the same idea: the raw column, uploaded once
     to ``device``, and the scan index as the root link of a downstream
-    ``IndexChain``.
+    ``IndexChain``.  The uploads go to ``ledger`` (cause ``scan_upload``)
+    and each SHA-1 of ``col_fp`` to a ``scan.fp`` span of ``tracer``.
     """
 
-    def __init__(self, table, device):
+    def __init__(self, table, device, *, tracer=NULL_TRACER, ledger=None):
         self._name = table.name
         self._cols = table.columns          # raw, unfiltered (host)
         self._idx = table.scan_indices()    # None = no filters
@@ -117,6 +124,8 @@ class _ScanView:
         self._chain: IndexChain | None = None
         self._fp_memo: dict = {}
         self._rows_tok: str | None = None
+        self._tracer = tracer
+        self._ledger = ledger
 
     @property
     def n(self) -> int:
@@ -153,8 +162,12 @@ class _ScanView:
                                self._idx.astype(np.int32)).to(self.device),)))
         raw = self._raw_dev.get(q)
         if raw is None:
-            raw = self._raw_dev[q] = torch.from_numpy(
-                np.ascontiguousarray(self._raw(q))).to(self.device)
+            host = np.ascontiguousarray(self._raw(q))
+            raw = self._raw_dev[q] = torch.from_numpy(host).to(self.device)
+            if self._ledger is not None:
+                self._ledger.record(host.nbytes, cause="scan_upload",
+                                    stage="scan", column=q,
+                                    direction="h2d")
         return raw, self._chain, None
 
     def col_dev(self, q: str) -> torch.Tensor:
@@ -186,10 +199,11 @@ class _ScanView:
         column back to compute its key."""
         fp = self._fp_memo.get(q)
         if fp is None:
-            h = hashlib.sha1()
-            h.update(self._raw(q).tobytes())
-            h.update(self._rows_token().encode())
-            fp = self._fp_memo[q] = h.hexdigest()
+            with self._tracer.span("scan.fp", column=q):
+                h = hashlib.sha1()
+                h.update(self._raw(q).tobytes())
+                h.update(self._rows_token().encode())
+                fp = self._fp_memo[q] = h.hexdigest()
         return fp
 
     def take(self, rows: np.ndarray) -> dict:
@@ -241,6 +255,12 @@ def _match_stats(bkey: torch.Tensor, pkey: torch.Tensor,
 
 def _null_fill(col: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, NULL_VALUE, col)
+
+
+def _expr_dev(view, expr) -> torch.Tensor:
+    """An aggregate expression's int64 values over a device view, on the
+    view's device."""
+    return evaluate(expr, lambda q: view.col_dev(q).to(torch.int64))
 
 
 class StageView:
@@ -667,7 +687,9 @@ class PipelineExecutor:
                 tenant=tenant, est_s=physical.est_total_s,
                 deadline_s=deadline_s, query_id=next(self._qid),
                 degraded_est_s=self._degraded_total_s(physical))
-            base = {name: _ScanView(t, self.device)
+            base = {name: _ScanView(t, self.device,
+                                    tracer=self.service.tracer,
+                                    ledger=self.service.ledger)
                     for name, t in query.tables.items()}
             # Residual (cycle-edge) filters on base tables apply at scan
             # time; the rest are grouped by the stage whose output they
@@ -857,19 +879,23 @@ class PipelineExecutor:
         The wall clock stops after the groups' ``synchronize``: a
         count-only sink reads its count on the host and launches nothing
         that would wait for the card."""
+        n_in = _src_n(cols)
         if query.group_by:
-            cols, sink_outcome = self._run_group_by(
-                query, cols, count_handoff=from_stages, tenant=tenant,
-                deadline_at=deadline_at, degraded=degraded)
+            with self.service.tracer.span("sink", kind="grouped",
+                                          rows=n_in):
+                cols, sink_outcome = self._run_group_by(
+                    query, cols, count_handoff=from_stages, tenant=tenant,
+                    deadline_at=deadline_at, degraded=degraded)
             outcomes = outcomes + [sink_outcome]
             agg = None
             rows = next(iter(cols.values())).shape[0] if cols else 0
-            source = cols
+        elif query.aggregate is not None:
+            with self.service.tracer.span("sink", kind="scalar", rows=n_in):
+                agg = self._apply_scalar_sink(query, cols)
+            rows = n_in
         else:
-            agg = self._apply_scalar_sink(query, cols)
-            rows = _src_n(cols) if not isinstance(cols, dict) else (
-                next(iter(cols.values())).shape[0] if cols else 0)
-            source = cols
+            agg, rows = None, n_in
+        source = cols
         self.service.cp.synchronize()
         wall = time.perf_counter() - t0
         return PipelineResult(
@@ -880,15 +906,17 @@ class PipelineExecutor:
     def _apply_scalar_sink(self, query: Query, cols):
         """Scalar aggregate without forcing full materialization: count
         needs only the (host-side) cardinality, sum/min/max/avg gather
-        exactly one column from a device view."""
-        if query.aggregate is None:
-            return None
+        exactly one column from a device view, and a sum over an
+        expression is evaluated and summed on the view's device (its
+        operand columns never reach the host)."""
         if isinstance(cols, dict):
             return apply_aggregate(cols, query.aggregate)
         kind = query.aggregate[0]
         if kind == "count":
             return cols.n
         q = query.aggregate[1]
+        if not isinstance(q, str):
+            return int(_expr_dev(cols, q).sum())
         if isinstance(cols, StageView):
             arr = cols.col_dev(q).cpu().numpy()
             self.service.note_host_bytes(
@@ -920,8 +948,10 @@ class PipelineExecutor:
             n = cols.n
             if aggregate[0] == "count":
                 values = torch.ones(n, dtype=torch.int32, device=dev)
-            else:
+            elif isinstance(aggregate[1], str):
                 values = cols.col_dev(aggregate[1]).to(torch.int32)
+            else:
+                values = _expr_dev(cols, aggregate[1])
             rid = torch.arange(n, dtype=torch.int32, device=dev)
             if n < MIN_STAGE_ROWS:
                 pad = MIN_STAGE_ROWS - n
@@ -933,10 +963,15 @@ class PipelineExecutor:
         else:
             if is_view:
                 # Multi-column keys: host dictionary packing needs the key
-                # columns (plus the value column) on host — counted.
+                # columns (plus a value column) on host — counted.  An
+                # expression's values stay on the device.
                 need = set(query.group_by)
+                dev_values = None
                 if aggregate[0] != "count":
-                    need.add(aggregate[1])
+                    if isinstance(aggregate[1], str):
+                        need.add(aggregate[1])
+                    else:
+                        dev_values = _expr_dev(cols, aggregate[1])
                 host_cols = {q: cols.col_dev(q).cpu().numpy()
                              if isinstance(cols, StageView)
                              else cols.col(q) for q in need}
@@ -952,8 +987,13 @@ class PipelineExecutor:
             n = keys.shape[0]
             if aggregate[0] == "count":
                 values = np.ones(n, np.int32)
-            else:
+            elif isinstance(aggregate[1], str):
                 values = np.asarray(cols[aggregate[1]], dtype=np.int32)
+            elif is_view:
+                values = dev_values
+            else:
+                values = evaluate(aggregate[1],
+                                  lambda q: cols[q].astype(np.int64))
             rid = np.arange(n, dtype=np.int32)
             if n < MIN_STAGE_ROWS:                  # empty/tiny pipelines
                 pad = MIN_STAGE_ROWS - n
@@ -965,7 +1005,8 @@ class PipelineExecutor:
                 # Packed multi-column keys sourced from a device view are
                 # packing traffic (``multicol_pack``), not a hand-off —
                 # the fused path's ``handoff`` cause stays zero.
-                upload = keys.nbytes + rid.nbytes + values.nbytes
+                upload = keys.nbytes + rid.nbytes + (
+                    values.nbytes if isinstance(values, np.ndarray) else 0)
                 moved += upload
                 self.service.note_host_bytes(
                     upload,

@@ -4,7 +4,8 @@ The engine executes one binary join per request; real analytical queries
 chain several equi-joins over filtered base tables and end in an
 aggregation.  This module is the *declarative* layer: named tables with
 integer columns, selectivity-annotated range filters, a set of equi-join
-edges, and an optional count/sum sink.  ``optimize.py`` turns a ``Query``
+edges, and an optional count/sum sink (of a column, or of a binary
+arithmetic expression of two columns).  ``optimize.py`` turns a ``Query``
 into a physical stage pipeline; ``executor.py`` runs it through the
 engine.
 
@@ -25,7 +26,8 @@ row multiset — that is the permutation-invariance contract the tests and
 the ``query_pipeline`` benchmark enforce.
 
 A copy of ``repro/queries/plan.py`` (NumPy only), so the port loads none
-of the JAX package.
+of the JAX package, with one addition of the port's: a sum over an
+expression (``EXPR_OPS``).
 """
 from __future__ import annotations
 
@@ -148,6 +150,21 @@ JOIN_KINDS = ("inner", "semi", "anti", "left_outer")
 # user put there; -1 payloads are indistinguishable from NULL by design).
 NULL_VALUE = -1
 
+# Binary operators of an aggregate expression ``(op, "t.a", "u.b")``: the
+# two int32 columns are widened to int64 first, so the value is exact.
+EXPR_OPS = ("+", "-", "*")
+
+
+def evaluate(operand, column):
+    """The operand's int64 values; ``column(q)`` returns column ``q``
+    widened to int64 (a NumPy array or a tensor: the operators are the
+    same)."""
+    if isinstance(operand, str):
+        return column(operand)
+    op, a, b = operand
+    x, y = column(a), column(b)
+    return x + y if op == "+" else x - y if op == "-" else x * y
+
 
 @dataclasses.dataclass(frozen=True)
 class Join:
@@ -190,8 +207,10 @@ class Query:
 
     ``joins`` in textual order is the naive left-deep baseline the
     optimizer must never price worse than.  ``aggregate`` is ``None``
-    (return the joined rows), ``("count",)``, or ``("<agg>",
-    "table.column")`` with ``<agg>`` in sum/min/max/avg.
+    (return the joined rows), ``("count",)``, ``("<agg>",
+    "table.column")`` with ``<agg>`` in sum/min/max/avg, or ``("sum",
+    (op, "t.a", "u.b"))``: the exact int64 sum of ``a op b`` with ``op``
+    in ``EXPR_OPS`` (Q1.x's ``lo_extendedprice * lo_discount``).
 
     ``group_by`` names qualified key columns: the sink then aggregates per
     distinct key combination (default ``("count",)`` when no aggregate is
@@ -199,8 +218,8 @@ class Query:
     (and the avg numerator) accumulate wide — exact int64 via the
     segmented-agg kernel's chunked channels — unless ``wrap32=True``
     requests the legacy int32-wrapping device accumulator (kept for
-    oracle-parity tests); the NumPy reference reproduces either mode
-    exactly.  Scalar sinks stay int64 host-side.
+    oracle-parity tests, column sums only); the NumPy reference
+    reproduces either mode exactly.  Scalar sinks are exact int64.
     """
 
     tables: dict
@@ -269,11 +288,27 @@ class Query:
             if kind not in ("count", "sum", "min", "max", "avg"):
                 raise ValueError(f"unknown aggregate {kind!r}")
             if kind != "count":
-                ref = self.aggregate[1]
-                self._check_column_ref(ref, kind)
-                if ref.partition(".")[0] in self._consumed:
-                    raise ValueError(f"{kind} column {ref!r} references a "
-                                     f"semi/anti-consumed table")
+                operand = self.aggregate[1]
+                if not isinstance(operand, str):
+                    if (not isinstance(operand, tuple) or len(operand) != 3
+                            or operand[0] not in EXPR_OPS):
+                        raise ValueError(
+                            f"{kind} operand {operand!r} is neither a "
+                            f"column nor (op, column, column) with op in "
+                            f"{EXPR_OPS}")
+                    if kind != "sum":
+                        raise ValueError(f"{kind} over an expression is "
+                                         f"unsupported: only sum takes one")
+                    if self.wrap32:
+                        raise ValueError("wrap32 applies to column sums, "
+                                         "not to an expression's")
+                refs = (operand,) if isinstance(operand, str) else \
+                    operand[1:]
+                for ref in refs:
+                    self._check_column_ref(ref, kind)
+                    if ref.partition(".")[0] in self._consumed:
+                        raise ValueError(f"{kind} column {ref!r} references "
+                                         f"a semi/anti-consumed table")
         # The join graph must connect every table: a disconnected query
         # would need a cross product no stage expresses (the NumPy oracle
         # rejects it too, but at execution time — fail at construction).
@@ -427,7 +462,7 @@ def apply_aggregate(columns: dict, aggregate: tuple | None):
     kind = aggregate[0]
     if kind == "count":
         return int(next(iter(columns.values())).shape[0]) if columns else 0
-    col = columns[aggregate[1]].astype(np.int64)
+    col = evaluate(aggregate[1], lambda q: columns[q].astype(np.int64))
     if col.size == 0:
         return None if kind in ("min", "max", "avg") else 0
     if kind == "sum":
@@ -442,9 +477,14 @@ def apply_aggregate(columns: dict, aggregate: tuple | None):
 def agg_output_name(aggregate: tuple) -> str:
     """Qualified name of the aggregate's output column in a grouped
     result (sorts after any ``table.column`` name, which keeps group keys
-    leading in ``rows_array``'s canonical column order)."""
-    return (f"~{aggregate[0]}()" if aggregate[0] == "count"
-            else f"~{aggregate[0]}({aggregate[1]})")
+    leading in ``rows_array``'s canonical column order): ``~sum(t.a*u.b)``
+    for an expression."""
+    if aggregate[0] == "count":
+        return "~count()"
+    operand = aggregate[1]
+    if not isinstance(operand, str):
+        operand = f"{operand[1]}{operand[0]}{operand[2]}"
+    return f"~{aggregate[0]}({operand})"
 
 
 def apply_group_by(columns: dict, group_by: tuple,
@@ -468,7 +508,7 @@ def apply_group_by(columns: dict, group_by: tuple,
     if kind == "count":
         out[name] = cnt
         return out
-    vals = columns[aggregate[1]].astype(np.int64)
+    vals = evaluate(aggregate[1], lambda q: columns[q].astype(np.int64))
     sm = np.zeros(g, np.int64)
     np.add.at(sm, inv, vals)
     if wrap32:

@@ -12,6 +12,7 @@ import repro.queries as jq
 import repro_torch.core as tc
 import repro_torch.engine as te
 import repro_torch.queries as tq
+from repro_torch.obs.ledger import PORT_CAUSES
 
 # No online feedback: measured times differ between the packages, and
 # the plans must not.
@@ -200,6 +201,14 @@ def run(key, cps, name, *, handoff, adaptive=False, order=None,
 def check(cps, name, **kw):
     want, _ = run("jax", cps, name, **kw)
     got, q = run("torch", cps, name, **kw)
+    # The port's own ledger causes have no counterpart in the JAX
+    # package: the scan views' uploads, held to the raw bytes they read
+    # (at most every column of every table once a run).
+    ledger = got[-1]["ledger"]
+    uploaded = sum(ledger.pop(c, 0) for c in PORT_CAUSES)
+    runs = len(got) - 1
+    assert 0 <= uploaded <= runs * sum(
+        v.nbytes for t in q.tables.values() for v in t.columns.values())
     ref_rows, ref_agg = tq.reference_execute(q)
     for w, g in zip(want[:-1], got[:-1]):
         assert np.array_equal(g["rows"], ref_rows)

@@ -924,6 +924,69 @@ def test_pipeline_on_card_is_exact_and_resident(dev, handoff):
     svc.close()
 
 
+@pytest.mark.parametrize("schedule,pr,ar", [
+    (None, 0.0, 0.0), (None, 0.5, 0.5), ((7, 6), 0.25, 0.4)])
+def test_groupby_int64_on_card_equals_cpu(dev, schedule, pr, ar):
+    """Int64 values (a query's expression) through ``seg_agg`` as two
+    int32 words: the card's exact sums equal the CPU's, bit for bit."""
+    n = 1 << 16
+    rng = np.random.default_rng(9)
+    keys = rng.integers(0, n // 64, n).astype(np.int32)
+    vals = _ints(rng, n).astype(np.int64) * rng.integers(-2**24, 2**24, n)
+    rel = tc.Relation(torch.arange(n, dtype=torch.int32),
+                      torch.from_numpy(keys))
+    kw = dict(schedule=schedule, partition_ratio=pr, agg_ratio=ar)
+    want, _ = tc.CoProcessor("cpu", "cpu").groupby(
+        rel, torch.from_numpy(vals), **kw)
+    reset_launch_counts()
+    got, _ = tc.CoProcessor("cpu", dev).groupby(
+        rel.to(dev), torch.from_numpy(vals).to(dev), **kw)
+    assert launch_counts()["seg_agg"] >= 2
+    for f in ("keys", "counts", "sums"):
+        w, g = getattr(want, f), getattr(got, f)
+        assert w.dtype == g.dtype and np.array_equal(w, g), f
+    assert np.array_equal(got.sorted().sums,
+                          tops.groupby_ref(keys, vals).sums)
+
+
+@pytest.mark.parametrize("group_by", [(), ("F.g",), ("F.g", "D0.a")])
+def test_expression_sums_on_card_are_exact(dev, group_by):
+    """A sum of ``F.m * D1.a``-style products past int32 at a 2^18 fact
+    table through ``PipelineExecutor`` on the card, scalar and grouped:
+    exact against ``reference_execute``, with no operand pulled to the
+    host (only the group keys, for multi-column packing)."""
+    import repro_torch.engine as te
+    import repro_torch.queries as tq
+
+    base = tq.make_star_query(1 << 18, [1 << 15] * 2,
+                              selectivities=[0.5, None], seed=23)
+    rng = np.random.default_rng(4)
+    fact = dict(base.tables["F"].columns,
+                x=_ints(rng, 1 << 18), y=_ints(rng, 1 << 18, -2**20, 2**20))
+    tables = dict(base.tables, F=tq.Table("F", fact))
+    svc = te.JoinQueryService(cp=tc.CoProcessor(c_device="cpu", g_device=dev),
+                              num_workers=2)
+    ex = tq.PipelineExecutor(service=svc)
+    try:
+        for op, a, b in (("*", "F.x", "F.y"), ("-", "F.x", "D1.a"),
+                         ("+", "F.y", "D0.a")):
+            q = tq.Query(tables=tables, joins=base.joins,
+                         aggregate=("sum", (op, a, b)), group_by=group_by)
+            before = svc.ledger.by_cause()
+            res = ex.run(q)
+            moved = {k: v - before.get(k, 0)
+                     for k, v in svc.ledger.by_cause().items()}
+            rows, agg = tq.reference_execute(q)
+            assert res.aggregate == agg
+            assert np.array_equal(res.rows_array() if group_by else
+                                  rows, rows)
+            assert moved["result"] == 0 or group_by
+            assert moved["multicol_pack"] <= (
+                4 * 2 * (1 << 18) * 2 if len(group_by) > 1 else 0)
+    finally:
+        svc.close()
+
+
 def test_run_map_series_on_card_matches_one_device(dev):
     """``run_map_series`` over ``partition_series(0)`` with the C group on
     the host and the G group on the card, the ratio moving across n1-n3:
