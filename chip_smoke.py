@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's nine CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
+Builds the port's ten CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once) and holds each integer kernel
 bit for bit against its plain PyTorch version at the main paths' shapes and
 at ragged and wide ones: A (n1+n2), B (n3), C (segmented aggregation),
@@ -45,8 +45,10 @@ just after, and verifies each against a NumPy oracle:
   2^21-2^23), the paper's default query three times (cold, then from the
   cache), a group-by of 2^24 tuples with 2^18 keys, a semi and an anti
   join at 2^22 and a 2^22 query under one injected kernel fault, every
-  result against a NumPy oracle; the content fingerprint's pull and hash
-  are timed at 2^22 and 2^24.
+  result against a NumPy oracle; the content key is timed at 2^22 and
+  2^24 on the card (the tree SHA-1 of ``csrc/sha1_tree.cu``) and on the
+  host path (both columns pulled and SHA-1'd), and the tree's top digests
+  are held to its plain version bit for bit.
 
 * the multi-join query pipeline (phase 12), through ``PipelineExecutor``
   over a ``JoinQueryService`` with phase 11's calibrated planner and two
@@ -217,6 +219,7 @@ from repro_torch.kernels.partition_hist.ref import (  # noqa: E402
     clustered_pids)
 from repro_torch.kernels.probe import ops as pops  # noqa: E402
 from repro_torch.kernels.probe import probe as pprobe  # noqa: E402
+from repro_torch.kernels.sha1_tree import sha1_tree as ksha  # noqa: E402
 from repro_torch.kernels.probe.ref import (  # noqa: E402
     probe_ref, random_layout)
 from repro_torch.ops import groupby as gb  # noqa: E402
@@ -251,6 +254,8 @@ from repro_torch.serve.engine import (ServeEngine,  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak
+# H100 SXM int32 operations: 132 SMs x 64 int32 lanes x 1.98 GHz boost.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 N_MAIN = 1 << 24            # paper §5.1 default relation size
 N_DD = 1 << 22
 GRID_NS = (N_MAIN, 1_000_003, 4096)
@@ -297,6 +302,10 @@ KERNELS = {
     # Port-only: the JAX package's probe (p2 -> p3 -> p4) is plain jnp.
     "csr_probe": {
         "source": "src/repro_torch/csrc/csr_probe.cu",
+        "replaces": None},
+    # Port-only: the JAX package's content key is hashlib on the host.
+    "sha1_tree": {
+        "source": "src/repro_torch/csrc/sha1_tree.cu",
         "replaces": None},
 }
 LM_ARCH = "zamba2_1_2b"     # the one config whose serving runs G and H
@@ -360,13 +369,16 @@ E_CLUSTER_NS = (1, 3, 4099, N_WIDE + 3)
 E_CLUSTER_PARTS = (1, 2, 1 << 13, 1 << 14, 1 << 17)
 # Phase 11, the join-query engine: the mixed workload's base size (its
 # relations are 2^21-2^23), the calibration size (a step on the card
-# costs more than a launch there) and the fingerprint's timed sizes.
+# costs more than a launch there), the fingerprint's timed sizes and the
+# tree SHA-1's checked ones (ragged, past one node level, 4 bytes into a
+# tensor as well).
 ENGINE_BASE = 1 << 22
 ENGINE_QUERIES = 16
 ENGINE_CAL_N = 1 << 20
 FINGERPRINT_NS = (N_DD, N_MAIN)
+SHA1_NS = (0, 1, 257, 64 * 256 + 1, 1_000_003, N_MAIN - 5)
 ENGINE_KERNELS = ("partition_hist_fused", "radix_scatter", "hash_bucket",
-                  "radix_hist", "seg_agg")
+                  "radix_hist", "seg_agg", "sha1_tree")
 # Phase 13, MoE serving: granite at full width and depth, served with the
 # two batches of LM_BATCHES under each dispatch engine; one full-width
 # unit (DE, 2 layers) of llama4, whose 48 layers do not fit one card.
@@ -2057,15 +2069,21 @@ def time_lm_kernels(dev) -> dict[str, dict]:
 
 
 def fingerprint_ms(dev) -> dict:
-    """The engine's content fingerprint of a build relation on the card:
-    the pull of both columns to the host (``.cpu()``) and the SHA-1 over
-    their bytes as ``relation_fingerprint`` takes them, each timed alone,
-    and ``relation_fingerprint`` as one call."""
+    """The engine's content key of a relation on the card, at
+    ``FINGERPRINT_NS``: the host path (both columns pulled, ``.cpu()``,
+    and SHA-1'd as ``host_fingerprint`` takes them, each timed alone, then
+    ``host_fingerprint`` as one call) against ``relation_fingerprint``,
+    which takes the tree SHA-1 on the card.  Then the tree kernel's row at
+    2^24: its time, its bound, the plain tree's time (pull and
+    ``hashlib``), and its top digests against the plain tree's, bit for
+    bit, there and at ``SHA1_NS`` (bytes that differ, in ``err``)."""
     import hashlib
+    from repro_torch.engine import table_cache
     out = {}
     for n in FINGERPRINT_NS:
         rel = uniform_relation(n, seed=1, device=dev)
-        eng.relation_fingerprint(rel, 0)                  # warm-up
+        table_cache.host_fingerprint(rel, 0)              # warm-up
+        eng.relation_fingerprint(rel, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         key, rid = rel.key.cpu().numpy(), rel.rid.cpu().numpy()
@@ -2075,13 +2093,54 @@ def fingerprint_ms(dev) -> dict:
         h.update(rid.tobytes())
         h.hexdigest()
         t2 = time.perf_counter()
-        eng.relation_fingerprint(rel, 0)
+        table_cache.host_fingerprint(rel, 0)
         t3 = time.perf_counter()
+        fp = table_cache.content_fingerprint(rel, 0)
+        t4 = time.perf_counter()
+        assert fp.path == "device" and fp.key.startswith(
+            table_cache.TREE_TAG), fp
         out[n] = {"bytes": rel.nbytes, "pull_ms": (t1 - t0) * 1e3,
-                  "hash_ms": (t2 - t1) * 1e3, "call_ms": (t3 - t2) * 1e3}
-        log(f"  fingerprint n={n}: {rel.nbytes} B, pull "
+                  "hash_ms": (t2 - t1) * 1e3,
+                  "host_call_ms": (t3 - t2) * 1e3,
+                  "call_ms": (t4 - t3) * 1e3, "pulled_bytes": fp.pulled}
+        log(f"  fingerprint n={n}: {rel.nbytes} B; host path: pull "
             f"{out[n]['pull_ms']:.3f} ms, SHA-1 {out[n]['hash_ms']:.3f} ms,"
-            f" relation_fingerprint {out[n]['call_ms']:.3f} ms")
+            f" host_fingerprint {out[n]['host_call_ms']:.3f} ms; card: "
+            f"relation_fingerprint {out[n]['call_ms']:.3f} ms, "
+            f"{fp.pulled} B pulled")
+    rel = uniform_relation(N_MAIN, seed=1, device=dev)
+    cols = [rel.key, rel.rid]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ksha.tree_tops_plain(cols)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((ksha.tree_tops(cols).cpu() != want).sum())
+    rng = np.random.default_rng(5)
+    for n in SHA1_NS:
+        key = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n + 1)
+                               .astype(np.int32)).to(dev)
+        for c in ([key[:n], torch.arange(n, dtype=torch.int32, device=dev)],
+                  [key[1:]]):
+            e = int((ksha.tree_tops(c).cpu() != ksha.tree_tops_plain(c))
+                    .sum())
+            assert e == 0, ("sha1_tree", n, len(c), e)
+            err = max(err, e)
+    ops = sum(ksha.tree_ops(c.nbytes) for c in cols)
+    nbytes = sum(c.nbytes for c in cols)
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"shape": f"2 columns of {N_MAIN} int32 ({nbytes} B), "
+                    f"{ksha.level_sizes(nbytes // 2)} digests a column",
+           "ms": cuda_ms(lambda: ksha.tree_tops(cols)),
+           "plain_ms": plain_ms, "library_ms": None,
+           "library": "none: no PyTorch call hashes",
+           "bound_ms": max(by_ops, by_bytes),
+           "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+           "ops": ops, "bound_ms_by_bytes": by_bytes,
+           "top_bytes": want.numel()}
+    log(f"  sha1_tree: {row}; max err {err}")
+    assert err == 0, ("sha1_tree", err)
+    out["sha1_tree"], out["sha1_tree_err"] = row, err
     return out
 
 
@@ -3614,6 +3673,8 @@ def main() -> int:
     other_times.update(time_probe_kernel(dev))
     other_times.update(time_csr_probe(dev))
     other_times.update(time_lm_kernels(dev))
+    other_times["sha1_tree"] = engine["fingerprint"]["sha1_tree"]
+    err["sha1_tree"] = engine["fingerprint"]["sha1_tree_err"]
 
     # Launches: A and B from phj_join (slice 1's path), C, D and E from
     # the GPU_ONLY partitioned group-by at 2^24, the path that added them,
@@ -3641,7 +3702,7 @@ def main() -> int:
                "hash_bucket": "groupby_gpu_only_partitioned",
                "radix_hist": "groupby_gpu_only_partitioned",
                "partitioned_probe": "partitioned_probe_join",
-               "csr_probe": "phj_join",
+               "csr_probe": "phj_join", "sha1_tree": "engine_service",
                "flash_attn": "lm_generate", "ssd_intra_chunk": "lm_generate"}
     record = []
     for name, meta in KERNELS.items():

@@ -55,8 +55,8 @@ from .faults import (FaultInjected, active as _faults_active,
 from .planner import QueryPlan, QueryPlanner
 from .resilience import (BreakerBoard, BudgetEnforcer, BudgetExceeded,
                          DeadlineExceeded, QueryContext, RetryPolicy)
-from .table_cache import (BuildTableCache, partition_layout_key,
-                          relation_fingerprint)
+from .table_cache import (BuildTableCache, content_fingerprint,
+                          partition_layout_key)
 
 
 @dataclasses.dataclass
@@ -515,9 +515,10 @@ class JoinQueryService:
                      stage: str = "-", column: str = "key",
                      tenant: str = "default") -> str:
         """The relation's cache key, in a ``fingerprint`` span (``side``
-        from ``column``; ``memo`` struct / hit / miss), with each
-        column's ``fingerprint.pull`` and ``fingerprint.hash`` inside on
-        a miss."""
+        from ``column``; ``memo`` struct / hit / miss; on a miss ``path``
+        device / host, also counted as ``fingerprints{path}``), with the
+        path's ``fingerprint.pull`` and ``fingerprint.hash`` spans inside
+        on a miss."""
         with self.tracer.span("fingerprint", side=column.split(".")[0],
                               memo="miss") as sp:
             # Structural fast path: a relation carrying an fp_hint (every
@@ -535,24 +536,24 @@ class JoinQueryService:
                     if sp is not None:
                         sp.set(memo="hit")
                     return hit[0]
-            # Content hash of a hint-less relation: for device-resident
-            # arrays this pulls both columns across the boundary —
-            # attributed under the ledger's ``fingerprint`` cause
-            # (memo-missed pulls only; a repeat of the same array objects
-            # hits the memo above).
-            pulled = sum(int(getattr(col, "nbytes", 0))
-                         for col in (rel.rid, rel.key)
-                         if not isinstance(col, np.ndarray))
-            fp = relation_fingerprint(rel, num_buckets, tracer=self.tracer)
-            if pulled:
-                self.ledger.record(pulled, cause="fingerprint", stage=stage,
-                                   column=column, direction="d2h",
-                                   tenant=tenant)
+            # Content hash of a hint-less relation: a relation on the card
+            # is hashed there and pulls its top digests, one on the host
+            # its columns' bytes — attributed under the ledger's
+            # ``fingerprint`` cause (memo-missed pulls only; a repeat of
+            # the same array objects hits the memo above).
+            fp = content_fingerprint(rel, num_buckets, tracer=self.tracer)
+            if sp is not None:
+                sp.set(path=fp.path)
+            self.metrics.inc("fingerprints", path=fp.path)
+            if fp.pulled:
+                self.ledger.record(fp.pulled, cause="fingerprint",
+                                   stage=stage, column=column,
+                                   direction="d2h", tenant=tenant)
             with self._lock:
                 if len(self._fp_cache) > 256:
                     self._fp_cache.clear()
-                self._fp_cache[memo_key] = (fp, rel.rid, rel.key)
-            return fp
+                self._fp_cache[memo_key] = (fp.key, rel.rid, rel.key)
+            return fp.key
 
     def _device_wall(self, t0: float) -> float:
         """Seconds since the ``perf_counter`` stamp ``t0``, read once the

@@ -12,39 +12,112 @@ entirely.
 relation (plus the bucket count, since tables of different geometry are not
 interchangeable), bounded by a byte budget over the dense CSR arrays.
 
-Counterpart of ``repro/engine/table_cache.py``: the same keys (the
-fingerprint hashes the same bytes in the same order, so its digest equals
-the reference's for the same relation) and the same byte sizes.
+Counterpart of ``repro/engine/table_cache.py``, with the same byte sizes.
+A relation on the host gets the reference's key (the same bytes hashed in
+the same order, so the same digest).  A relation whose columns both lie
+on the card gets a tree SHA-1 of the same bytes, built there
+(``kernels/sha1_tree``) with only its top digests pulled: a key of its
+own (``TREE_TAG``), which no host key equals.
 """
 from __future__ import annotations
 
 import hashlib
 import threading
 from collections import OrderedDict
+from typing import NamedTuple
+
+import numpy as np
+import torch
 
 from ..core.relation import Relation
+from ..kernels.sha1_tree import sha1_tree
 from ..obs.trace import NULL_TRACER
 
+TREE_TAG = "t1:"    # starts every tree key; a flat key is 40 hex digits
 
-def relation_fingerprint(rel: Relation, num_buckets: int, *,
-                         tracer=NULL_TRACER) -> str:
-    """Content hash of a build relation + table geometry.
 
-    Hashes the host bytes of both columns, so regenerating an identical
-    relation (same generator, same seed) hits the same cache line even
-    though the tensor objects differ.  A column on the card is pulled to
-    the host first (``.cpu()``, which waits for the device).  ``tracer``
-    spans each column's pull (``fingerprint.pull``) and hash
-    (``fingerprint.hash``).
-    """
+class Fingerprint(NamedTuple):
+    """A relation's content key, the path that computed it (``"device"``:
+    the tree SHA-1 on the card; ``"host"``: SHA-1 of the host bytes) and
+    the bytes that path pulled from the card."""
+    key: str
+    path: str
+    pulled: int
+
+
+def _suffix(rel: Relation, num_buckets: int) -> bytes:
+    return f"|n={rel.size}|b={num_buckets}".encode()
+
+
+def _on_card(rel: Relation) -> bool:
+    """Both columns are CUDA tensors: the relation takes the tree key."""
+    return all(isinstance(c, torch.Tensor) and c.device.type == "cuda"
+               for c in (rel.key, rel.rid))
+
+
+def tree_fingerprint(rel: Relation, num_buckets: int, *,
+                     tracer=NULL_TRACER) -> str:
+    """The tree key: ``TREE_TAG`` and the SHA-1 of both columns' top
+    digests (key, then rid; ``sha1_tree.tree_tops``) and the suffix the
+    host key ends with.  On the card the digests are built there, with
+    the launches and the host's SHA-1 in ``fingerprint.hash`` spans and
+    the digests' pull in a ``fingerprint.pull`` span; on the CPU the
+    plain version builds the same digests."""
+    with tracer.span("fingerprint.hash"):
+        tops = sha1_tree.tree_tops([rel.key.contiguous(),
+                                    rel.rid.contiguous()])
+    with tracer.span("fingerprint.pull"):
+        host = tops.cpu().numpy()
+    with tracer.span("fingerprint.hash"):
+        h = hashlib.sha1(host.tobytes())
+        h.update(_suffix(rel, num_buckets))
+    return TREE_TAG + h.hexdigest()
+
+
+def host_fingerprint(rel: Relation, num_buckets: int, *,
+                     tracer=NULL_TRACER) -> str:
+    """The reference's key: SHA-1 of both columns' host bytes (key, then
+    rid) and the geometry.  A column on the card is pulled first
+    (``.cpu()``, which waits for the device); ``tracer`` spans each
+    column's pull (``fingerprint.pull``) and hash (``fingerprint.hash``)."""
     h = hashlib.sha1()
     for col in (rel.key, rel.rid):
         with tracer.span("fingerprint.pull"):
             host = col.cpu().numpy()
         with tracer.span("fingerprint.hash"):
             h.update(host.tobytes())
-    h.update(f"|n={rel.size}|b={num_buckets}".encode())
+    h.update(_suffix(rel, num_buckets))
     return h.hexdigest()
+
+
+def content_fingerprint(rel: Relation, num_buckets: int, *,
+                        tracer=NULL_TRACER) -> Fingerprint:
+    """``relation_fingerprint`` with its path and the bytes it pulled: a
+    relation on the card pulls its top digests, one on the host is
+    counted at its columns' bytes, as the reference counts them (a NumPy
+    column crosses nothing)."""
+    if _on_card(rel):
+        key = tree_fingerprint(rel, num_buckets, tracer=tracer)
+        pulled = sum(sha1_tree.top_nbytes(c.nbytes)
+                     for c in (rel.key, rel.rid))
+        return Fingerprint(key, "device", pulled)
+    key = host_fingerprint(rel, num_buckets, tracer=tracer)
+    pulled = sum(int(getattr(col, "nbytes", 0)) for col in (rel.rid, rel.key)
+                 if not isinstance(col, np.ndarray))
+    return Fingerprint(key, "host", pulled)
+
+
+def relation_fingerprint(rel: Relation, num_buckets: int, *,
+                         tracer=NULL_TRACER) -> str:
+    """Content hash of a build relation + table geometry.
+
+    Hashes the bytes of both columns, so regenerating an identical
+    relation (same generator, same seed) hits the same cache line even
+    though the tensor objects differ.  Both columns on the card: the tree
+    key (``tree_fingerprint``); otherwise the reference's
+    (``host_fingerprint``).  The path follows the columns' device alone.
+    """
+    return content_fingerprint(rel, num_buckets, tracer=tracer).key
 
 
 def table_nbytes(table) -> int:

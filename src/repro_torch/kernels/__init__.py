@@ -10,12 +10,14 @@ from .hash import hash as _hash
 from .partition_hist import (fused as _fused, partition_hist as _hist,
                              reorder as _reorder)
 from .probe import probe as _probe
+from .sha1_tree import sha1_tree as _sha1
 from .ssd import ssd as _ssd
 
 _COUNTED = {"partition_hist_fused": _fused, "radix_scatter": _reorder,
             "seg_agg": _agg, "hash_bucket": _hash, "radix_hist": _hist,
             "partitioned_probe": _probe, "flash_attn": _flash,
-            "ssd_intra_chunk": _ssd, "csr_probe": _csr}
+            "ssd_intra_chunk": _ssd, "csr_probe": _csr,
+            "sha1_tree": _sha1}
 
 
 def launch_counts() -> dict[str, int]:

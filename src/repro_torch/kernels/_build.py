@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("partition_hist_fused", "radix_scatter", "seg_agg", "hash_bucket",
            "radix_hist", "partitioned_probe", "flash_attn", "ssd_intra_chunk",
-           "csr_probe")
+           "csr_probe", "sha1_tree")
 
 _lock = threading.Lock()
 _libs: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}

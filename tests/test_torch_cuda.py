@@ -24,6 +24,7 @@ from repro_torch.kernels.probe import ops as pops
 from repro_torch.kernels.probe import probe as pprobe
 from repro_torch.kernels.partition_hist.ref import clustered_pids
 from repro_torch.kernels.probe.ref import random_layout
+from repro_torch.kernels.sha1_tree import sha1_tree as ksha
 from repro_torch.kernels.flash_attn import flash_attn as fa
 from repro_torch.kernels.ssd import ssd as kssd
 from repro_torch.layers import moe as tmoe
@@ -88,7 +89,8 @@ def test_phj_join_on_card_equals_cpu(dev, kind):
                                "radix_scatter": 2 * passes, "seg_agg": 0,
                                "hash_bucket": 4, "radix_hist": 2,
                                "partitioned_probe": 0, "flash_attn": 0,
-                               "ssd_intra_chunk": 0, "csr_probe": 2}
+                               "ssd_intra_chunk": 0, "csr_probe": 2,
+                               "sha1_tree": 0}
     for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
         assert np.array_equal(w, g)
 
@@ -844,6 +846,90 @@ def test_service_on_card_runs_phj_groupby_and_faults(dev):
         o = svc._run_with_recovery(te.JoinQuery(b, p, query_id=4))
     assert np.array_equal(o.result.valid_pairs(), exp)
     assert [e["what"] for e in svc.metrics.events("recovery")] == ["retry"]
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 64 * 256 + 1, 2**16 + 3,
+                               1_000_003, (1 << 24) - 5])
+@pytest.mark.parametrize("kind", ["arange", "random"])
+def test_sha1_tree_kernel_matches_plain(dev, n, kind):
+    """The tree's top digests on the card equal the plain tree's bit for
+    bit, for columns 16-byte aligned (fresh tensors) and a view that
+    starts 4 bytes into a larger one; one launch a level."""
+    rng = np.random.default_rng(n)
+    key = (np.arange(n, dtype=np.int32) if kind == "arange" else
+           rng.integers(-2**31, 2**31 - 1, n).astype(np.int32))
+    rid = rng.permutation(n).astype(np.int32)
+    want = ksha.tree_tops_plain([torch.from_numpy(key),
+                                 torch.from_numpy(rid)])
+    k = torch.from_numpy(key).to(dev)
+    wide = torch.from_numpy(np.concatenate([[7], rid]).astype(np.int32))
+    for cols in ([k, torch.from_numpy(rid).to(dev)], [k, wide.to(dev)[1:]]):
+        reset_launch_counts()
+        got = ksha.tree_tops(cols)
+        assert launch_counts()["sha1_tree"] == \
+            len(ksha.level_sizes(cols[0].nbytes))
+        assert got.device == dev and torch.equal(got.cpu(), want)
+
+
+def test_sha1_tree_wrapper_rejects_bad_inputs(dev):
+    col = torch.zeros(64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ksha.tree_tops([col[::2]])
+    with pytest.raises(ValueError):
+        ksha.tree_tops([col, col.cpu()])
+    with pytest.raises(ValueError):
+        ksha.tree_tops([torch.zeros(3, dtype=torch.int16, device=dev)])
+
+
+def test_service_on_card_keys_content_equal_pairs_alike(dev):
+    """A CUDA service keys a regenerated, content-equal pair as the first
+    (its partition layouts hit on both sides); the ledger's fingerprint
+    bytes are the top digests pulled; ``sha1_tree`` launches on a memo
+    miss and not on a hit; the spans and the counter say ``device``."""
+    import repro_torch.engine as te
+    from repro_torch.engine import table_cache
+
+    cp = tc.CoProcessor(c_device="cpu", g_device=dev)
+    planner = te.QueryPlanner(cache_bytes=1 << 10, rand_penalty=8.0,
+                              phj_overhead_s=0.0)
+    svc = te.JoinQueryService(cp=cp, planner=planner, num_workers=0)
+    n = 1 << 15
+
+    def pair():
+        return (tc.uniform_relation(n, seed=1, device=dev),
+                tc.uniform_relation(n, seed=2, device=dev))
+
+    b, p = pair()
+    exp = tc.join_oracle(b, p)
+    digests = sum(ksha.tree_tops([r.key, r.rid]).nbytes for r in (b, p))
+    assert digests == 2 * 2 * ksha.top_nbytes(4 * n)
+    reset_launch_counts()
+    outs = [svc.execute(te.JoinQuery(b, p, query_id=0))]
+    first = launch_counts()["sha1_tree"]
+    assert first == 2 * len(ksha.level_sizes(4 * n))
+    assert svc.ledger.by_cause()["fingerprint"] == digests
+    outs.append(svc.execute(te.JoinQuery(b, p, query_id=1)))
+    assert launch_counts()["sha1_tree"] == first            # memo hits
+    b2, p2 = pair()
+    assert table_cache.relation_fingerprint(b2, 0) == \
+        table_cache.relation_fingerprint(b, 0) != \
+        table_cache.host_fingerprint(b, 0)
+    reset_launch_counts()
+    outs.append(svc.execute(te.JoinQuery(b2, p2, query_id=2)))
+    assert launch_counts()["sha1_tree"] == first            # two misses
+    assert svc.ledger.by_cause()["fingerprint"] == 2 * digests
+    assert [o.plan.algorithm for o in outs] == ["phj"] * 3
+    assert [(o.partition_cache_hit, o.probe_partition_cache_hit)
+            for o in outs] == [(False, False), (True, True), (True, True)]
+    for o in outs:
+        assert np.array_equal(o.result.valid_pairs(), exp)
+    missed = [s for s in svc.tracer.spans()
+              if s.name == "fingerprint" and s.attrs["memo"] == "miss"]
+    assert len(missed) == 4 and {s.attrs["path"] for s in missed} == \
+        {"device"}
+    assert svc.metrics.counter_series("fingerprints") == {
+        (("path", "device"),): 4}
+    svc.close()
 
 
 def _views(src, seen=None):
