@@ -1402,10 +1402,11 @@ class GLaunches(Spy):
         self.counts, self.key = counts, key
 
     def enter(self, args, kw) -> None:
-        self.before = fa.launches
+        self.before = rk.launch_counts()["flash_attn"]
 
     def _count(self, args, kw, out):
-        self.counts[self.key(kw)] += fa.launches - self.before
+        self.counts[self.key(kw)] += (rk.launch_counts()["flash_attn"]
+                                    - self.before)
 
 
 @contextlib.contextmanager

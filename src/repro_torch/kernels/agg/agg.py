@@ -19,10 +19,10 @@ two.
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
+
+from .._build import I32, I64, PTR, kernel, launch
 
 INT32_MAX = 2**31 - 1
 INT32_MIN = -(2**31)
@@ -33,8 +33,6 @@ INT32_MIN = -(2**31)
 WIDE_SUM_MAX_ROWS = (2**31 - 1) // 255        # 8-bit chunks
 
 _MASK32 = 0xFFFFFFFF
-
-launches = 0  # kernel launches since the last reset
 
 
 def wide_chunk_bits(n: int) -> int:
@@ -146,24 +144,13 @@ def seg_agg(gid: torch.Tensor, val: torch.Tensor, *, num_slots: int,
             raise TypeError(f"{name} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    from .._build import check, load
-
-    fn = load("seg_agg").seg_agg
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     cnt = torch.empty(num_slots, dtype=torch.int32, device=dev)
     sm = torch.empty((rows, num_slots), dtype=torch.int32, device=dev)
     mn = torch.empty(num_slots, dtype=torch.int32, device=dev)
     mx = torch.empty(num_slots, dtype=torch.int32, device=dev)
     chunk_bits = 8 if wrap32 else wide_chunk_bits(n)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(gid.data_ptr(), val.data_ptr(), cnt.data_ptr(),
-                 sm.data_ptr(), mn.data_ptr(), mx.data_ptr(), n, num_slots,
-                 int(wrap32), chunk_bits, stream)
-    check(err, "seg_agg")
-    global launches
-    launches += 1
+    launch(kernel("seg_agg", "seg_agg", *[PTR] * 6, I64, I32, I32, I32, PTR),
+           dev, gid.data_ptr(), val.data_ptr(), cnt.data_ptr(),
+           sm.data_ptr(), mn.data_ptr(), mx.data_ptr(), n, num_slots,
+           int(wrap32), chunk_bits)
     return cnt, (sm[0] if wrap32 else sm), mn, mx

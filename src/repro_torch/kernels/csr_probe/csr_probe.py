@@ -13,13 +13,11 @@ table that ``table_from_buckets`` built.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-INT32_MAX = 2**31 - 1
+from .._build import I64, PTR, kernel, launch
 
-launches = 0  # kernel launches since the last reset
+INT32_MAX = 2**31 - 1
 
 
 def csr_lookup_plain(table, bkt: torch.Tensor, key: torch.Tensor):
@@ -49,24 +47,6 @@ def _check(dev: torch.device, **tensors) -> None:
             raise ValueError(f"{name} must be a contiguous 1-D tensor")
 
 
-def _fn(name: str, nargs: int):
-    from .._build import load
-
-    fn = getattr(load("csr_probe"), name)
-    fn.argtypes = [ctypes.c_void_p] * nargs + [ctypes.c_longlong] * 3 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _count_launch(err: int, what: str) -> None:
-    from .._build import check
-
-    check(err, what)
-    global launches
-    launches += 1
-
-
 def csr_lookup(table, bkt: torch.Tensor, key: torch.Tensor):
     """For each probe tuple, its key's entry in bucket ``bkt``'s key list
     (or -1) and the entry's rid count (or 0): ``probe_p3``'s ``(entry,
@@ -82,18 +62,14 @@ def csr_lookup(table, bkt: torch.Tensor, key: torch.Tensor):
     n = key.shape[0]
     if bkt.shape[0] != n:
         raise ValueError(f"bkt has {bkt.shape[0]} ids, key {n}")
-    fn = _fn("csr_lookup", 8)
     entry = torch.empty(n, dtype=torch.int32, device=dev)
     nmatch = torch.empty(n, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(bkt.data_ptr(), key.data_ptr(),
-                 table.bucket_key_start.data_ptr(),
-                 table.bucket_key_count.data_ptr(), table.ukeys.data_ptr(),
-                 table.key_rid_count.data_ptr(), entry.data_ptr(),
-                 nmatch.data_ptr(), n, table.num_buckets,
-                 table.ukeys.shape[0], stream)
-    _count_launch(err, "csr_lookup")
+    launch(kernel("csr_probe", "csr_lookup", *[PTR] * 8, I64, I64, I64, PTR),
+           dev, bkt.data_ptr(), key.data_ptr(),
+           table.bucket_key_start.data_ptr(),
+           table.bucket_key_count.data_ptr(), table.ukeys.data_ptr(),
+           table.key_rid_count.data_ptr(), entry.data_ptr(),
+           nmatch.data_ptr(), n, table.num_buckets, table.ukeys.shape[0])
     return entry, nmatch
 
 
@@ -118,19 +94,15 @@ def csr_expand(table, probe_rid: torch.Tensor, entry: torch.Tensor,
                          f"{nmatch.shape[0]} for {n} probe tuples")
     if not 0 <= max_out <= INT32_MAX:
         raise ValueError(f"max_out must lie in [0, 2^31): {max_out}")
-    fn = _fn("csr_expand", 9)
     offs = torch.cumsum(nmatch, 0, dtype=torch.int32)
     out_probe = torch.empty(max_out, dtype=torch.int32, device=dev)
     out_build = torch.empty(max_out, dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(probe_rid.data_ptr(), entry.data_ptr(), nmatch.data_ptr(),
-                 offs.data_ptr(), table.key_rid_start.data_ptr(),
-                 table.rids.data_ptr(), out_probe.data_ptr(),
-                 out_build.data_ptr(), count.data_ptr(), n, table.capacity,
-                 max_out, stream)
-    _count_launch(err, "csr_expand")
+    launch(kernel("csr_probe", "csr_expand", *[PTR] * 9, I64, I64, I64, PTR),
+           dev, probe_rid.data_ptr(), entry.data_ptr(), nmatch.data_ptr(),
+           offs.data_ptr(), table.key_rid_start.data_ptr(),
+           table.rids.data_ptr(), out_probe.data_ptr(), out_build.data_ptr(),
+           count.data_ptr(), n, table.capacity, max_out)
     return JoinResult(out_probe, out_build, count)
 
 

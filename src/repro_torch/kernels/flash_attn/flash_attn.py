@@ -25,10 +25,9 @@ bfloat16 agrees to 2e-2, float32 to 3e-5.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from .._build import I32, I64, PTR, kernel, launch, variant_counts
 from .ref import causal_mask  # noqa: F401
 from .ref import flash_attention_ref as flash_attention_plain  # noqa: F401
 
@@ -37,8 +36,7 @@ WGMMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("cuda_cores", "mma_sync", "wgmma")   # the kernel's codes 0-2
 
-launches = 0  # kernel launches since the last reset
-launches_by_variant = dict.fromkeys(VARIANTS, 0)
+launches_by_variant = variant_counts("flash_attn", VARIANTS)
 
 
 def variant_for(dtype: torch.dtype, head_dim: int) -> str:
@@ -87,22 +85,7 @@ def _check(q, k, v, num_kv_heads: int) -> None:
         raise ValueError(f"tensors on several devices: {devs}")
 
 
-_fn = None
 _counters: dict = {}
-
-
-def _kernel():
-    """``flash_attn_fwd`` of ``csrc/flash_attn.cu``, built and typed once."""
-    global _fn
-    if _fn is None:
-        from .._build import load
-
-        fn = load("flash_attn").flash_attn_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + \
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def _counter(dev: torch.device) -> int:
@@ -143,20 +126,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         elif q.dtype == torch.bfloat16 and t.data_ptr() % 16:
             # The tensor-core paths move 16-byte vectors.
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    from .._build import check
-
     out = torch.empty_like(q)
     counter = _counter(dev) if variant == "wgmma" else None
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            k.shape[1], h, num_kv_heads, d, int(causal), _DTYPES[q.dtype],
-            VARIANTS.index(variant), counter)
-    if dev.index in (None, torch.cuda.current_device()):
-        err = _kernel()(*args, torch.cuda.current_stream(dev).cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            err = _kernel()(*args, torch.cuda.current_stream().cuda_stream)
-    check(err, f"flash_attn ({variant})")
-    global launches
-    launches += 1
-    launches_by_variant[variant] += 1
+    launch(kernel("flash_attn", "flash_attn_fwd", *[PTR] * 4, *[I64] * 6,
+                  I32, I32, I32, PTR, PTR),
+           dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+           sq, k.shape[1], h, num_kv_heads, d, int(causal), _DTYPES[q.dtype],
+           VARIANTS.index(variant), counter, variant=variant)
     return out

@@ -7,15 +7,12 @@ There is no fallback between the two.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from .._build import I64, PTR, U32, kernel, launch
 from ..partition_hist.fused import fmix32_int64
 
 MAX_BUCKETS = 1 << 31  # the mask must fit the kernel's uint32 and int32 out
-
-launches = 0  # kernel launches since the last reset
 
 
 def hash_bucket_plain(keys: torch.Tensor, *, num_buckets: int) -> torch.Tensor:
@@ -41,18 +38,8 @@ def hash_bucket(keys: torch.Tensor, *, num_buckets: int) -> torch.Tensor:
         raise TypeError(f"keys must be int32, got {keys.dtype}")
     if keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError("keys must be a contiguous 1-D tensor")
-    from .._build import check, load
-
-    fn = load("hash_bucket").hash_bucket
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_uint, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     n = keys.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=keys.device)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(keys.data_ptr(), out.data_ptr(), n, num_buckets - 1, stream)
-    check(err, "hash_bucket")
-    global launches
-    launches += 1
+    launch(kernel("hash_bucket", "hash_bucket", PTR, PTR, I64, U32, PTR),
+           keys.device, keys.data_ptr(), out.data_ptr(), n, num_buckets - 1)
     return out

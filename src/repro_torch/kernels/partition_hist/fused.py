@@ -7,17 +7,14 @@ same function in plain PyTorch.  There is no fallback between the two.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from .._build import I32, I64, PTR, kernel, launch
 from .partition_hist import radix_hist_plain
 
 MURMUR_C1 = 0x85EBCA6B
 MURMUR_C2 = 0xC2B2AE35
 _MASK32 = 0xFFFFFFFF
-
-launches = 0  # kernel launches since the last reset
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -59,15 +56,12 @@ def _check(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be a contiguous 1-D tensor")
 
 
-def partition_hist_fused(keys: torch.Tensor, *, shift: int, bits: int,
-                         defines: tuple[str, ...] = ()):
+def partition_hist_fused(keys: torch.Tensor, *, shift: int, bits: int):
     """``(pid, hist)`` of the ``bits``-wide hash digit at ``shift``.
 
     keys: (n,) int32.  Returns pid (n,) int32 and hist (2**bits,) int32.
     Any digit the JAX package takes is accepted: ``1 <= bits`` and
-    ``shift + bits <= 32``.  ``defines`` are extra ``-D`` flags for a
-    build of the kernel that ``tools/check_hopper_kernels.py`` compares
-    (empty on every path).
+    ``shift + bits <= 32``.
     """
     if bits < 1 or shift < 0 or shift + bits > 32:
         raise ValueError(f"need 1 <= bits and shift + bits <= 32: "
@@ -77,22 +71,11 @@ def partition_hist_fused(keys: torch.Tensor, *, shift: int, bits: int,
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
     _check("keys", keys)
-    from .._build import check, load
-
-    lib = load("partition_hist_fused", defines)
-    fn = lib.partition_hist_fused
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     n = keys.shape[0]
     pid = torch.empty(n, dtype=torch.int32, device=keys.device)
     hist = torch.empty(1 << bits, dtype=torch.int32, device=keys.device)
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(keys.data_ptr(), pid.data_ptr(), hist.data_ptr(), n, shift,
-                 bits, stream)
-    check(err, "partition_hist_fused")
-    global launches
-    launches += 1
+    launch(kernel("partition_hist_fused", "partition_hist_fused", PTR, PTR,
+                  PTR, I64, I32, I32, PTR),
+           keys.device, keys.data_ptr(), pid.data_ptr(), hist.data_ptr(), n,
+           shift, bits)
     return pid, hist

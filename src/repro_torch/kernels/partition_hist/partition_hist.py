@@ -9,11 +9,9 @@ one-hot and the JAX package's ``segment_sum`` do.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-launches = 0  # kernel launches since the last reset
+from .._build import I64, PTR, kernel, launch
 
 
 def radix_hist_plain(pid: torch.Tensor, *, num_parts: int) -> torch.Tensor:
@@ -54,18 +52,8 @@ def radix_hist(pid: torch.Tensor, *, num_parts: int) -> torch.Tensor:
         raise TypeError(f"pid must be int32, got {pid.dtype}")
     if pid.dim() != 1 or not pid.is_contiguous():
         raise ValueError("pid must be a contiguous 1-D tensor")
-    from .._build import check, load
-
-    fn = load("radix_hist").radix_hist
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     hist = torch.empty(num_parts, dtype=torch.int32, device=pid.device)
-    with torch.cuda.device(pid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(pid.data_ptr(), hist.data_ptr(), pid.shape[0], num_parts,
-                 stream)
-    check(err, "radix_hist")
-    global launches
-    launches += 1
+    launch(kernel("radix_hist", "radix_hist", PTR, PTR, I64, I64, PTR),
+           pid.device, pid.data_ptr(), hist.data_ptr(), pid.shape[0],
+           num_parts)
     return hist

@@ -13,14 +13,12 @@ of ``8 * num_parts`` tuples.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from .._build import I32, I64, PTR, kernel, launch
 
 SHARED_MAX_PARTS = 2048   # csrc/radix_scatter.cu: shared-memory path
 SHARED_TILE = 4096        # its tile: 256 threads x 16 tuples
-
-launches = 0  # kernel launches since the last reset
 
 
 def uses_shared(num_parts: int) -> bool:
@@ -75,25 +73,14 @@ def radix_scatter(rid: torch.Tensor, key: torch.Tensor, pid: torch.Tensor,
             raise ValueError(f"{name} must be contiguous of shape ({size},)")
     if n >= 1 << 31:
         raise ValueError(f"n={n} needs int64 offsets")
-    from .._build import check, load
-
-    lib = load("radix_scatter")
-    fn = lib.radix_scatter
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     tile = tile_len(num_parts)
     offs = torch.empty(scratch_ints(n, num_parts), dtype=torch.int32,
                        device=dev)
     out_rid = torch.empty_like(rid)
     out_key = torch.empty_like(key)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(rid.data_ptr(), key.data_ptr(), pid.data_ptr(),
-                 starts.data_ptr(), offs.data_ptr(), out_rid.data_ptr(),
-                 out_key.data_ptr(), n, num_parts.bit_length() - 1, tile,
-                 stream)
-    check(err, "radix_scatter")
-    global launches
-    launches += 1
+    launch(kernel("radix_scatter", "radix_scatter", *[PTR] * 7, I64, I32,
+                  I64, PTR),
+           dev, rid.data_ptr(), key.data_ptr(), pid.data_ptr(),
+           starts.data_ptr(), offs.data_ptr(), out_rid.data_ptr(),
+           out_key.data_ptr(), n, num_parts.bit_length() - 1, tile)
     return out_rid, out_key

@@ -15,14 +15,12 @@ Output:
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from .._build import I64, PTR, kernel, launch
 
 PAD_KEY = 2**31 - 1
 _MASK32 = 0xFFFFFFFF
-
-launches = 0  # kernel launches since the last reset
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -87,30 +85,18 @@ def probe(table_keys: torch.Tensor, table_rids: torch.Tensor,
             raise TypeError(f"{name} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    from .._build import check, load
-
-    fn = load("partitioned_probe").partitioned_probe
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     (p, k), m = table_keys.shape, probe_keys.shape[1]
     out = torch.empty((p, m), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table_keys.data_ptr(), table_rids.data_ptr(),
-                 probe_keys.data_ptr(), out.data_ptr(), p, k, m, stream)
-    check(err, "partitioned_probe")
-    global launches
-    launches += 1
+    launch(kernel("partitioned_probe", "partitioned_probe", *[PTR] * 4,
+                  I64, I64, I64, PTR),
+           dev, table_keys.data_ptr(), table_rids.data_ptr(),
+           probe_keys.data_ptr(), out.data_ptr(), p, k, m)
     return out
 
 
 def max_shared_keys() -> int:
     """The longest row the kernel stages in shared memory on the current
     CUDA device; longer rows are searched in device memory."""
-    from .._build import load
-
-    fn = load("partitioned_probe").partitioned_probe_max_shared_keys
-    fn.argtypes = []
-    fn.restype = ctypes.c_longlong
-    return int(fn())
+    return int(kernel("partitioned_probe",
+                      "partitioned_probe_max_shared_keys",
+                      returns=I64).fn())

@@ -16,12 +16,12 @@ Port-only: the JAX package hashes a relation's bytes flat, on the host.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 import hashlib
 
 import numpy as np
 import torch
+
+from .._build import I32, I64, PTR, kernel, launch
 
 LEAF_BYTES = 1024
 FANOUT = 64
@@ -34,8 +34,6 @@ MAX_COLS = 2                 # columns in one launch
 # csrc/sha1_tree.cu): 80 rounds of 5, 64 schedule words of 3, 16 byte
 # swaps and the 5 final adds.
 OPS_PER_BLOCK = 80 * 5 + 64 * 3 + 16 + 5
-
-launches = 0  # kernel launches since the last reset
 
 
 def level_sizes(nbytes: int) -> list[int]:
@@ -103,30 +101,13 @@ def _check_col(col: torch.Tensor) -> None:
                          f"{col.dtype} x {col.shape[0]}")
 
 
-@functools.cache
-def _fn(name: str):
-    """The library's launch function ``name``, called holding the
-    interpreter lock: a launch takes microseconds, and giving the lock up
-    for it lets a busy thread hold it for a whole switch interval (5 ms)
-    before this one gets it back."""
-    from .._build import load
-
-    proto = ctypes.PYFUNCTYPE(ctypes.c_int, *[ctypes.c_void_p,
-                                              ctypes.c_longlong,
-                                              ctypes.c_void_p] * MAX_COLS,
-                              ctypes.c_int, ctypes.c_void_p)
-    return proto((name, load("sha1_tree")))
-
-
-def _launch(fn, what: str, jobs, stream) -> None:
-    """One launch over up to two ``(in_ptr, n, out_ptr)`` jobs."""
-    from .._build import check
-
+def _launch(name: str, dev: torch.device, jobs) -> None:
+    """One launch of ``name`` over up to two ``(in_ptr, n, out_ptr)``
+    jobs."""
     args = [a for job in jobs for a in job] + [0, 0, 0] * (MAX_COLS
                                                           - len(jobs))
-    check(fn(*args, len(jobs), stream), what)
-    global launches
-    launches += 1
+    launch(kernel("sha1_tree", name, *[PTR, I64, PTR] * MAX_COLS, I32, PTR),
+           dev, *args, len(jobs))
 
 
 def tree_tops(cols) -> torch.Tensor:
@@ -168,14 +149,10 @@ def tree_tops(cols) -> torch.Tensor:
             low_at += k * DIGEST_BYTES
         levels.append(lv + [base + top_at])
         top_at += s[-1] * DIGEST_BYTES
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(_fn("sha1_tree_leaves"), "sha1_tree_leaves",
-                [(c.data_ptr(), c.nbytes, lv[0])
-                 for c, lv in zip(cols, levels)], stream)
-        for depth in range(1, max(len(s) for s in sizes)):
-            _launch(_fn("sha1_tree_nodes"), "sha1_tree_nodes",
-                    [(lv[depth - 1], s[depth - 1], lv[depth])
-                     for s, lv in zip(sizes, levels) if len(s) > depth],
-                    stream)
+    _launch("sha1_tree_leaves", dev, [(c.data_ptr(), c.nbytes, lv[0])
+                                      for c, lv in zip(cols, levels)])
+    for depth in range(1, max(len(s) for s in sizes)):
+        _launch("sha1_tree_nodes", dev,
+                [(lv[depth - 1], s[depth - 1], lv[depth])
+                 for s, lv in zip(sizes, levels) if len(s) > depth])
     return buf[:top_bytes]

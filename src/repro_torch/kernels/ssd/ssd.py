@@ -24,10 +24,9 @@ ask for ``cuda_cores`` on bfloat16 inputs too, to compare the two.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from .._build import I32, I64, PTR, kernel, launch, variant_counts
 from .ref import ssd_intra_chunk_ref as ssd_intra_chunk_plain  # noqa: F401
 
 HEAD_DIMS = (16, 32, 64)
@@ -36,8 +35,7 @@ MAX_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("cuda_cores", "wgmma")   # the kernel's codes 0-1
 
-launches = 0  # kernel launches since the last reset
-launches_by_variant = dict.fromkeys(VARIANTS, 0)
+launches_by_variant = variant_counts("ssd_intra_chunk", VARIANTS)
 
 
 def variant_for(dtype: torch.dtype) -> str:
@@ -69,13 +67,10 @@ def _check(x, dt, b, c, a) -> None:
 
 def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                     c: torch.Tensor, a: torch.Tensor, *,
-                    variant: str | None = None,
-                    defines: tuple[str, ...] = ()) -> torch.Tensor:
+                    variant: str | None = None) -> torch.Tensor:
     """Y_intra (B, NC, Q, H, P) float32 of x (B, NC, Q, H, P); dt
     (B, NC, Q, H) float32; b, c (B, NC, Q, N) of x's dtype; a (H,)
-    float32 (negative).  ``variant`` defaults to ``variant_for(x.dtype)``;
-    ``defines`` are extra ``-D`` flags for a build of the kernel that
-    ``tools/check_hopper_kernels.py`` compares (empty on every path)."""
+    float32 (negative).  ``variant`` defaults to ``variant_for(x.dtype)``."""
     _check(x, dt, b, c, a)
     dev = x.device
     if dev.type != "cuda":
@@ -108,28 +103,10 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         if variant == "wgmma" and name in "xbc" and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              "(TMA)")
-    from .._build import check
-
     out = torch.empty(x.shape, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(defines)(
-            x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
-            a.data_ptr(), out.data_ptr(), bs * nc, q, h, p, n,
-            _DTYPES[x.dtype], VARIANTS.index(variant), stream)
-    check(err, f"ssd_intra_chunk ({variant})")
-    global launches
-    launches += 1
-    launches_by_variant[variant] += 1
+    launch(kernel("ssd_intra_chunk", "ssd_intra_chunk", *[PTR] * 6,
+                  *[I64] * 5, I32, I32, PTR),
+           dev, x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
+           a.data_ptr(), out.data_ptr(), bs * nc, q, h, p, n,
+           _DTYPES[x.dtype], VARIANTS.index(variant), variant=variant)
     return out
-
-
-def _kernel(defines: tuple[str, ...] = ()):
-    """``ssd_intra_chunk`` of ``csrc/ssd_intra_chunk.cu``, typed."""
-    from .._build import load
-
-    fn = load("ssd_intra_chunk", defines).ssd_intra_chunk
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 5 + \
-        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn

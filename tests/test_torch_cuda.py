@@ -513,9 +513,9 @@ def test_flash_attn_matches_plain_version(dev, b, sq, sk, h, kv, d, causal,
     q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
     k = torch.randn(b, sk, kv, d, generator=g, device=dev).to(dtype)
     v = torch.randn(b, sk, kv, d, generator=g, device=dev).to(dtype)
-    n = fa.launches
+    n = launch_counts()["flash_attn"]
     got = fa.flash_attention(q, k, v, num_kv_heads=kv, causal=causal)
-    assert fa.launches == n + 1 and got.dtype == dtype
+    assert launch_counts()["flash_attn"] == n + 1 and got.dtype == dtype
     _close(got, fa.flash_attention_plain(q, k, v, num_kv_heads=kv,
                                          causal=causal), tol)
 
@@ -537,9 +537,9 @@ def test_ssd_intra_chunk_matches_plain_version(dev, bs, nc, q, h, p, n,
     b = torch.randn(bs, nc, q, n, generator=g, device=dev).to(dtype)
     c = torch.randn(bs, nc, q, n, generator=g, device=dev).to(dtype)
     a = -torch.exp(torch.randn(h, generator=g, device=dev) * 0.3)
-    n0 = kssd.launches
+    n0 = launch_counts()["ssd_intra_chunk"]
     got = kssd.ssd_intra_chunk(x, dt, b, c, a)
-    assert kssd.launches == n0 + 1 and got.dtype == torch.float32
+    assert launch_counts()["ssd_intra_chunk"] == n0 + 1 and got.dtype == torch.float32
     _close(got, kssd.ssd_intra_chunk_plain(x, dt, b, c, a), tol)
 
 
@@ -1176,9 +1176,9 @@ def test_flash_attention_function_grads_match_plain_backward(
            for s, n in ((sq, h), (sk, kv), (sk, kv))]
     go = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
     got = [t.clone().requires_grad_() for t in ins]
-    n0 = fa.launches
+    n0 = launch_counts()["flash_attn"]
     gops.flash_attention(*got, num_kv_heads=kv, causal=causal).backward(go)
-    assert fa.launches == n0 + 1
+    assert launch_counts()["flash_attn"] == n0 + 1
     want = [t.clone().requires_grad_() for t in ins]
     fa.flash_attention_plain(*want, num_kv_heads=kv,
                              causal=causal).backward(go)
@@ -1208,9 +1208,9 @@ def test_ssd_intra_chunk_function_grads_match_plain_backward(
            -torch.exp(torch.randn(h, generator=g, device=dev) * 0.3)]
     gy = torch.randn(bs, nc, q, h, p, generator=g, device=dev)
     got = [t.clone().requires_grad_() for t in ins]
-    n0 = kssd.launches
+    n0 = launch_counts()["ssd_intra_chunk"]
     hops.ssd_intra_chunk(*got).backward(gy)
-    assert kssd.launches == n0 + 1
+    assert launch_counts()["ssd_intra_chunk"] == n0 + 1
     want = [t.clone().requires_grad_() for t in ins]
     kssd.ssd_intra_chunk_plain(*want).backward(gy)
     for x, y in zip(got, want):

@@ -11,6 +11,7 @@ from numpy.testing import assert_allclose
 from repro.kernels.flash_attn.flash_attn import flash_attention_pallas
 from repro.kernels.flash_attn.ref import flash_attention_ref
 from repro.layers.attention import _sdpa as jax_sdpa
+from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attn import flash_attn as fa
 from repro_torch.kernels.flash_attn import ops as fops
 from repro_torch.kernels.flash_attn import ref as fref
@@ -57,9 +58,9 @@ def test_plain_matches_pallas_interpret(b, sq, sk, h, kv, d, causal, dtype):
 def test_wrapper_on_cpu_matches_oracle(b, sq, sk, h, kv, d, causal, dtype):
     (jq, jk, jv), (tq, tk, tv) = _inputs(b, sq, sk, h, kv, d, dtype, sk + h)
     want = flash_attention_ref(jq, jk, jv, num_kv_heads=kv, causal=causal)
-    fa.launches = 0
+    reset_launch_counts()
     got = fops.flash_attention(tq, tk, tv, num_kv_heads=kv, causal=causal)
-    assert fa.launches == 0          # the CPU runs the plain version
+    assert launch_counts()["flash_attn"] == 0          # the CPU runs the plain version
     assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
     with pytest.raises(ValueError, match="CUDA"):   # the kernel's own
         fa.flash_attention(tq, tk, tv, num_kv_heads=kv, causal=causal)
@@ -94,10 +95,10 @@ def test_ref_and_ops_match_jax_ref(b, sq, sk, h, kv, d, causal, dtype):
                                    causal=causal)
     assert got.dtype == TDT[dtype] and got.shape == (b, sq, h, d)
     assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype], atol=TOL[dtype])
-    fa.launches = 0
+    reset_launch_counts()
     assert torch.equal(fops.flash_attention(tq, tk, tv, num_kv_heads=kv,
                                             causal=causal), got)
-    assert fa.launches == 0
+    assert launch_counts()["flash_attn"] == 0
     assert fa.flash_attention_plain is fref.flash_attention_ref
 
 

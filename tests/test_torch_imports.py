@@ -100,3 +100,42 @@ def test_every_jax_module_has_a_counterpart():
         jax_pkg.rglob("*.py")) if "__pycache__" not in p.parts
         and not (PKG / p.relative_to(jax_pkg)).exists()]
     assert not missing, missing
+
+
+def test_kernel_launch_counts_are_one_per_source_and_import_loads_nothing():
+    """``launch_counts`` has one count per ``_build.SOURCES`` entry,
+    ``reset_launch_counts`` zeroes them and G's and H's variant counts,
+    and importing every kernel module builds and loads no library."""
+    from repro_torch.kernels import _build
+
+    kernel_mods = [m for m in _modules()
+                   if m.startswith("repro_torch.kernels")]
+    code = (
+        "import importlib\n"
+        f"for m in {kernel_mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from repro_torch.kernels import (_build, launch_counts,\n"
+        "                                 reset_launch_counts)\n"
+        "from repro_torch.kernels.flash_attn import flash_attn as fa\n"
+        "from repro_torch.kernels.ssd import ssd as kssd\n"
+        "assert not _build._libs, _build._libs\n"
+        "assert list(launch_counts()) == list(_build.SOURCES)\n"
+        "assert not any(launch_counts().values())\n"
+        "_build._counts['csr_probe'] = 3\n"
+        "fa.launches_by_variant['wgmma'] = 2\n"
+        "kssd.launches_by_variant['cuda_cores'] = 1\n"
+        "assert launch_counts()['csr_probe'] == 3\n"
+        "reset_launch_counts()\n"
+        "assert launch_counts() == dict.fromkeys(_build.SOURCES, 0)\n"
+        "assert fa.launches_by_variant == dict.fromkeys(fa.VARIANTS, 0)\n"
+        "assert kssd.launches_by_variant == dict.fromkeys(kssd.VARIANTS, 0)\n"
+        "assert not _build._libs, _build._libs\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    # The names bench/roofline.py's COUNTER_OF and bench/harness.py read.
+    assert set(_build.SOURCES) == {
+        "partition_hist_fused", "radix_scatter", "seg_agg", "hash_bucket",
+        "radix_hist", "partitioned_probe", "flash_attn", "ssd_intra_chunk",
+        "csr_probe", "sha1_tree"}

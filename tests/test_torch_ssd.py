@@ -17,6 +17,7 @@ from repro.kernels.ssd.ssd import ssd_intra_chunk_pallas
 from repro.layers import ssd as jssd
 from repro.models.params import materialize as jmaterialize
 from repro_torch.core.interop import _tensors_like
+from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.ssd import ops as tops
 from repro_torch.kernels.ssd import ref as tref
 from repro_torch.kernels.ssd import ssd as tker
@@ -67,9 +68,9 @@ def test_plain_matches_pallas_interpret(bs, nc, q, h, p, n, dtype):
 @pytest.mark.parametrize("bs,nc,q,h,p,n,dtype", GRID)
 def test_wrapper_on_cpu_matches_oracle(bs, nc, q, h, p, n, dtype):
     jin, tin = _kernel_inputs(bs, nc, q, h, p, n, dtype, q + h)
-    tker.launches = 0
+    reset_launch_counts()
     got = tops.ssd_intra_chunk(*tin)
-    assert tker.launches == 0        # the CPU runs the plain version
+    assert launch_counts()["ssd_intra_chunk"] == 0        # the CPU runs the plain version
     assert_allclose(_np(got), _np(ssd_intra_chunk_ref(*jin)),
                     rtol=TOL[dtype], atol=TOL[dtype])
     with pytest.raises(ValueError, match="CUDA"):   # the kernel's own
@@ -87,9 +88,9 @@ def test_ref_and_ops_match_jax_ref(bs, nc, q, h, p, n, dtype):
     assert got.dtype == torch.float32 and got.shape == (bs, nc, q, h, p)
     assert_allclose(_np(got), _np(ssd_intra_chunk_ref(*jin)),
                     rtol=TOL[dtype], atol=TOL[dtype])
-    tker.launches = 0
+    reset_launch_counts()
     assert torch.equal(tops.ssd_intra_chunk(*tin), got)
-    assert tker.launches == 0
+    assert launch_counts()["ssd_intra_chunk"] == 0
     assert tker.ssd_intra_chunk_plain is tref.ssd_intra_chunk_ref
 
 

@@ -35,9 +35,9 @@ a match aggregation for narrow digits and with other block sizes and
 loads in flight; E with other block sizes, blocks per SM, loads in flight
 and sub-histogram copies; F without the top table, without staged rids,
 with 1 or 2 keys a thread, with no stage ahead of its six consumer groups
-and with 7 groups of 4 warps (E's and F's builds are loaded by
-``_build.load`` and launched here, so the wrappers every path calls keep
-their signatures); beside PyTorch's own passes over the same bytes
+and with 7 groups of 4 warps (these builds are typed by ``_build.kernel``
+and launched here through ``_build.launch``, so the wrappers every path
+calls take no build flags); beside PyTorch's own passes over the same bytes
 (``x.float()`` for H, ``keys.clone()`` for A, ``pid.amax()`` and
 ``pid.clone()`` for E, ``tk.clone()`` + ``qk.clone()`` for F).
 ``--quick`` stops after the checks.  Prints the card's name and power
@@ -46,7 +46,6 @@ limit first.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import functools
 import subprocess
 import sys
@@ -62,6 +61,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core import (Relation, unique_relation,  # noqa: E402
                               uniform_relation)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels._build import I32, I64, PTR  # noqa: E402
 from repro_torch.kernels.flash_attn import flash_attn as fa  # noqa: E402
 from repro_torch.kernels.partition_hist import fused  # noqa: E402
 from repro_torch.kernels.partition_hist import partition_hist  # noqa: E402
@@ -100,6 +100,7 @@ H_PROBES = (("-DSSD_CONSUMERS=3",), ("-DSSD_FACTOR_EXP=0",),
 A_PROBES = (("-DA_THREADS=256",), ("-DA_THREADS=1024",), ("-DA_U=2",),
             ("-DA_U=8",))
 A_MATCH = ("-DMATCH_MAX_BITS=3",)   # __match_any_sync up to 3 bits
+H_STAMPS = ("-DSSD_PROBE=7",)       # clock64() stamps in Y (stamps_h)
 # E: (n, P) checked on uniform and clustered pids, aligned and 4 bytes
 # past alignment; the builds its design was chosen against.
 E_SIZES = (0, 1, 3, 4099, (1 << 20) + 3)
@@ -259,8 +260,7 @@ def check_h(probe: bool) -> None:
         worst = 0.0
         for i, shape in enumerate(H_CHECK):
             args = h_inputs(shape, dtype, i)
-            got = kssd.ssd_intra_chunk(*args, variant=variant,
-                                       defines=defines)
+            got = h_build(defines)(*args, variant=variant)
             want = kssd.ssd_intra_chunk_plain(*args)
             torch.cuda.synchronize()
             err, share = h_share(got, want, H_TOL[dtype])
@@ -278,6 +278,7 @@ def check_h(probe: bool) -> None:
 def check_a(probe: bool) -> None:
     rng = np.random.default_rng(11)
     for defines in ((), A_MATCH) if probe else ((),):
+        digit = a_build(defines)
         for n in A_SIZES:
             keys = torch.from_numpy(rng.integers(-2**31, 2**31, n + 1)
                                     .astype(np.int32)).cuda()
@@ -286,9 +287,7 @@ def check_a(probe: bool) -> None:
                 # keys[1:] starts 4 bytes past an aligned base: the scalar
                 # path; keys[:n] the vector path and its tail.
                 for name, k in (("aligned", keys[:n]), ("offset", keys[1:])):
-                    got = fused.partition_hist_fused(k, shift=shift,
-                                                     bits=bits,
-                                                     defines=defines)
+                    got = digit(k, shift, bits)
                     want = fused.partition_hist_fused_plain(k, shift=shift,
                                                             bits=bits)
                     ok = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -323,8 +322,8 @@ def time_h(probe: bool) -> None:
         rows += [("wgmma", H_SINGLE_W), ("cuda_cores", ())]
         rows += [("wgmma", d) for d in H_PROBES]
     for variant, defines in rows:
-        ms = cuda_ms(lambda: kssd.ssd_intra_chunk(*args, variant=variant,
-                                                  defines=defines))
+        ms = cuda_ms(functools.partial(h_build(defines), *args,
+                                       variant=variant))
         print(f"H time x {shape[:5]} N {n} bf16 {variant} "
               f"{' '.join(defines)}: {ms:.5f} ms, bound {bound:.6f} ms "
               f"(bytes), {bound / ms:.3f} of it", flush=True)
@@ -355,7 +354,7 @@ def stamps_h(args) -> None:
     """The -DSSD_PROBE=7 build: clock64() stamps of block 0's two consumer
     warpgroups over its first heads (the cycles each part of a head
     takes; the slots are listed at STAMPS in csrc/ssd_intra_chunk.cu)."""
-    y = kssd.ssd_intra_chunk(*args, defines=("-DSSD_PROBE=7",))
+    y = h_build(H_STAMPS)(*args, variant="wgmma")
     torch.cuda.synchronize()
     h, p = args[0].shape[3], args[0].shape[4]
     names = ["X wait"]
@@ -396,8 +395,8 @@ def time_a(probe: bool) -> None:
         if probe:
             builds += [A_MATCH] if bits <= 3 else list(A_PROBES)
         for defines in builds:
-            ms = cuda_ms(lambda: fused.partition_hist_fused(
-                keys, shift=0, bits=bits, defines=defines))
+            ms = cuda_ms(functools.partial(a_build(defines), keys, 0,
+                                           bits))
             print(f"A time n=2^24 bits={bits} {' '.join(defines)}: "
                   f"{ms:.5f} ms, bound {8 * n / HBM * 1e3:.6f} ms (bytes), "
                   f"{8 * n / HBM * 1e3 / ms:.3f} of it", flush=True)
@@ -412,42 +411,73 @@ def time_a(probe: bool) -> None:
               f"{cuda_ms(lambda: keys.clone()):.5f} ms", flush=True)
 
 
+def a_build(defines):
+    """Kernel A's function ``(keys, shift, bits) -> (pid, hist)``: the
+    wrapper every path calls, or the launch of a probing build with
+    ``defines`` (counted among the library's launches)."""
+    if not defines:
+        return lambda keys, shift, bits: fused.partition_hist_fused(
+            keys, shift=shift, bits=bits)
+    k = _build.kernel("partition_hist_fused", "partition_hist_fused", PTR,
+                      PTR, PTR, I64, I32, I32, PTR, defines=defines)
+
+    def run(keys, shift, bits):
+        pid = torch.empty_like(keys)
+        hist = torch.empty(1 << bits, dtype=torch.int32, device=keys.device)
+        _build.launch(k, keys.device, keys.data_ptr(), pid.data_ptr(),
+                      hist.data_ptr(), keys.shape[0], shift, bits)
+        return pid, hist
+    return run
+
+
+def h_build(defines):
+    """Kernel H's function ``(x, dt, b, c, a, *, variant) -> y``, as
+    ``a_build`` gives A's."""
+    if not defines:
+        return kssd.ssd_intra_chunk
+    k = _build.kernel("ssd_intra_chunk", "ssd_intra_chunk", *[PTR] * 6,
+                      *[I64] * 5, I32, I32, PTR, defines=defines)
+
+    def run(x, dt, b, c, a, *, variant):
+        bs, nc, q, h, p = x.shape
+        y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        _build.launch(k, x.device, x.data_ptr(), dt.data_ptr(), b.data_ptr(),
+                      c.data_ptr(), a.data_ptr(), y.data_ptr(), bs * nc, q,
+                      h, p, b.shape[-1], kssd._DTYPES[x.dtype],
+                      kssd.VARIANTS.index(variant), variant=variant)
+        return y
+    return run
+
+
 def e_build(defines):
-    """Kernel E's function ``(pid, num_parts) -> hist``: the wrapper every
-    path calls, or the launch of a probing build with ``defines`` (not
-    counted among the wrapper's launches)."""
+    """Kernel E's function ``(pid, num_parts) -> hist``, as ``a_build``
+    gives A's."""
     if not defines:
         return lambda pid, p: partition_hist.radix_hist(pid, num_parts=p)
-    fn = _build.load("radix_hist", defines).radix_hist
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    k = _build.kernel("radix_hist", "radix_hist", PTR, PTR, I64, I64, PTR,
+                      defines=defines)
 
     def run(pid, p):
         hist = torch.empty(p, dtype=torch.int32, device=pid.device)
-        _build.check(fn(pid.data_ptr(), hist.data_ptr(), pid.shape[0], p,
-                        torch.cuda.current_stream().cuda_stream),
-                     "radix_hist")
+        _build.launch(k, pid.device, pid.data_ptr(), hist.data_ptr(),
+                      pid.shape[0], p)
         return hist
     return run
 
 
 def f_build(defines):
     """Kernel F's function ``(table_keys, table_rids, probe_keys) ->
-    rids``, as ``e_build`` gives E's."""
+    rids``, as ``a_build`` gives A's."""
     if not defines:
         return pprobe.probe
-    fn = _build.load("partitioned_probe", defines).partitioned_probe
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    k = _build.kernel("partitioned_probe", "partitioned_probe", *[PTR] * 4,
+                      I64, I64, I64, PTR, defines=defines)
 
     def run(tk, tr, pk):
         out = torch.empty(pk.shape, dtype=torch.int32, device=pk.device)
-        _build.check(fn(tk.data_ptr(), tr.data_ptr(), pk.data_ptr(),
-                        out.data_ptr(), tk.shape[0], tk.shape[1],
-                        pk.shape[1], torch.cuda.current_stream().cuda_stream),
-                     "partitioned_probe")
+        _build.launch(k, pk.device, tk.data_ptr(), tr.data_ptr(),
+                      pk.data_ptr(), out.data_ptr(), tk.shape[0],
+                      tk.shape[1], pk.shape[1])
         return out
     return run
 
@@ -629,7 +659,9 @@ def main() -> int:
     if "B" in only and "E" not in only:
         names.append("radix_hist")
     probes = {"E": ("radix_hist", E_PROBES),
-              "F": ("partitioned_probe", F_PROBES)}
+              "F": ("partitioned_probe", F_PROBES),
+              "A": ("partition_hist_fused", A_PROBES + (A_MATCH,)),
+              "H": ("ssd_intra_chunk", H_PROBES + (H_SINGLE_W, H_STAMPS))}
     prebuild([(n, ()) for n in names] +
              [(probes[k][0], d) for k in only if args.probe and k in probes
               for d in probes[k][1]])
