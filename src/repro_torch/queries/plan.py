@@ -26,8 +26,10 @@ row multiset — that is the permutation-invariance contract the tests and
 the ``query_pipeline`` benchmark enforce.
 
 A copy of ``repro/queries/plan.py`` (NumPy only), so the port loads none
-of the JAX package, with one addition of the port's: a sum over an
-expression (``EXPR_OPS``).
+of the JAX package, with two additions of the port's: a sum over an
+expression (``EXPR_OPS``), and each column's range memoized on its
+``Table`` (``Table.column_range``), which gives the optimizer the same
+floats from one scan of the column.
 """
 from __future__ import annotations
 
@@ -54,18 +56,38 @@ class Filter:
         return (col >= self.lo) & (col < self.hi)
 
     def estimate(self, col: np.ndarray) -> float:
+        return self.estimate_range(
+            None if self.selectivity is not None else value_range(col))
+
+    def estimate_range(self, span: tuple[int, int] | None) -> float:
+        """The estimate over a column whose observed range is ``span`` =
+        ``(min, max + 1)``, ``None`` for an empty one; the annotation, when
+        given, takes precedence and ``span`` is not read."""
         if self.selectivity is not None:
             return float(min(max(self.selectivity, 0.0), 1.0))
-        if col.size == 0:
+        if span is None:
             return 1.0
-        lo, hi = int(col.min()), int(col.max()) + 1
+        lo, hi = span
         width = max(1, hi - lo)
         covered = max(0, min(self.hi, hi) - max(self.lo, lo))
         return min(1.0, covered / width)
 
 
+def value_range(col: np.ndarray) -> tuple[int, int] | None:
+    """``(min, max + 1)`` of ``col``, or ``None`` when it is empty."""
+    if col.size == 0:
+        return None
+    return int(col.min()), int(col.max()) + 1
+
+
 class Table:
-    """A named base table: equal-length int32 columns plus scan filters."""
+    """A named base table: equal-length int32 columns plus scan filters.
+
+    The optimizer's statistics (each column's range and distinct count)
+    and the executor's scan (``filtered``, ``scan_indices``) are memoized
+    on first use, so a column is not changed in place once the table has
+    been used.  A table made by ``with_filters`` starts with no memo.
+    """
 
     def __init__(self, name: str, columns: dict, filters=()):
         self.name = name
@@ -78,6 +100,8 @@ class Table:
         self._filtered: "Table | None" = None
         self._scan_idx: np.ndarray | None = None
         self._ndv: dict[str, int] = {}
+        self._range: dict[str, tuple[int, int] | None] = {}
+        self._range_scans = self._range_hits = 0
 
     @property
     def size(self) -> int:
@@ -124,11 +148,27 @@ class Table:
 
     # -- optimizer side: estimates only -------------------------------------
     def est_rows(self) -> float:
-        """Estimated post-filter cardinality (annotations, not data)."""
+        """Estimated post-filter cardinality (annotations, or each filtered
+        column's memoized range)."""
         est = float(self.size)
         for f in self.filters:
-            est *= f.estimate(self.columns[f.column])
+            est *= f.estimate_range(None if f.selectivity is not None
+                                    else self.column_range(f.column))
         return max(1.0, est)
+
+    def column_range(self, column: str) -> tuple[int, int] | None:
+        """``value_range`` of ``column``, scanned once per table."""
+        if column in self._range:
+            self._range_hits += 1
+        else:
+            self._range_scans += 1
+            self._range[column] = value_range(self.columns[column])
+        return self._range[column]
+
+    def stats(self) -> dict:
+        """Range-memo misses (column scans) and hits so far."""
+        return {"range_scans": self._range_scans,
+                "range_hits": self._range_hits}
 
     def ndv_est(self, column: str) -> float:
         """Estimated distinct values of ``column`` after filtering.

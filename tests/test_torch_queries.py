@@ -96,6 +96,120 @@ def test_optimizer_plans_match(name, handoff):
     assert got == want
 
 
+def ssb_queries(mq, cell, tables):
+    """A cell's queries in package ``mq`` over shared ``Table`` objects,
+    one per table and set of filters, as the benchmark's drivers build
+    them.  The reference sums one column, and a plan does not read the
+    sink's operand, so its side sums an expression's first column."""
+    from bench.drivers.ssb_flights import referenced
+    from bench import harness
+    specs = harness.cell_spec(cell)[3]["queries"]
+    cols: dict = {}
+    for spec in specs.values():
+        for t, cs in referenced(spec).items():
+            cols.setdefault(t, [])
+            cols[t] += [c for c in cs if c not in cols[t]]
+    shared: dict = {}
+
+    def table(name, filters):
+        key = (name, tuple(map(tuple, filters)))
+        if key not in shared:
+            shared[key] = mq.Table(
+                name, {c: tables[name][c] for c in cols[name]},
+                [mq.Filter(c, lo, hi) for c, lo, hi in filters])
+        return shared[key]
+
+    def aggregate(kind, operand):
+        if isinstance(operand, str):
+            return kind, operand
+        return (kind, tuple(operand)) if mq is tq else (kind, operand[1])
+
+    return {name: mq.Query(
+                tables={t: table(t, fs) for t, fs in spec["tables"].items()},
+                joins=tuple(mq.Join(*j) for j in spec["joins"]),
+                aggregate=aggregate(*spec["aggregate"]),
+                group_by=tuple(spec["group_by"]))
+            for name, spec in specs.items()}
+
+
+@pytest.mark.parametrize("cell", ["ssb_sf2.flights14", "ssb_sf2.flights23"])
+def test_ssb_plans_match_and_scan_each_range_once(cell):
+    """The benchmark's SSB queries at 4000 lineorder rows, each planned
+    twice on shared tables: the reference's plans on both calls, one scan
+    of each filtered column per table on the first and none on the
+    second."""
+    from bench.data.ssb_flights import make_tables
+    from bench import harness
+    data = harness.cell_spec(cell)[2]["data"]
+    data["rows"] = {"lineorder": 4000, "customer": 300, "supplier": 40,
+                    "part": 2000, "date": 2556}
+    tables = make_tables(data, 2**31 + 7)
+    want_q = ssb_queries(jq, cell, tables)
+    got_q = ssb_queries(tq, cell, tables)
+    want_opt, got_opt = (mq.JoinOrderOptimizer(planner(me), handoff="device")
+                         for mq, me in (PKGS["jax"], PKGS["torch"]))
+    for name, q in got_q.items():
+        for call in (1, 2):
+            before = {t: t.stats() for t in q.tables.values()}
+            got = got_opt.optimize(q).to_dict()
+            assert got == want_opt.optimize(want_q[name]).to_dict(), \
+                (name, call)
+            for t in q.tables.values():
+                ranged = {f.column for f in t.filters}
+                scans = t.stats()["range_scans"]
+                if call == 1:
+                    # Every filtered column, once, on its first query.
+                    assert scans == len(ranged), (name, t.name)
+                else:
+                    assert scans == before[t]["range_scans"], (name, t.name)
+                    assert (t.stats()["range_hits"]
+                            > before[t]["range_hits"]) == bool(ranged)
+
+
+INT32 = np.iinfo(np.int32)
+
+
+@pytest.mark.parametrize("case", [
+    ("empty", [], [(0, 5, None), (-3, 3, None)]),
+    ("annotated", [1, 5, 9], [(0, 2, 0.3), (0, 2, 1.7), (0, 2, -0.2),
+                              (4, 6, None)]),
+    ("outside", list(range(10, 21)), [(100, 200, None), (-50, -10, None),
+                                       (-1000, 1000, None), (20, 21, None)]),
+    ("one_value", [7, 7, 7], [(7, 8, None), (0, 7, None), (8, 9, None)]),
+    ("overlapping", [3, 40, 17, 8, 25], [(5, 30, None), (3, 15, None),
+                                          (10, 12, None)]),
+    ("int32_extremes", [INT32.min, 0, INT32.max],
+     [(INT32.min, 0, None), (1, INT32.max, None), (-5, 5, 0.5)]),
+], ids=lambda case: case[0])
+def test_range_estimates_match_the_reference(case):
+    """``Filter.estimate`` and ``Table.est_rows`` / ``ndv_est`` are the
+    reference's floats exactly, from the range memo; a ``with_filters``
+    table starts with an empty memo."""
+    _, values, ranges = case
+    col = np.asarray(values, dtype=np.int32)
+    other = np.arange(col.size, dtype=np.int32)
+    tables = {}
+    for mq in (jq, tq):
+        filters = [mq.Filter("a", lo, hi, sel) for lo, hi, sel in ranges]
+        base = mq.Table("t", {"a": col, "b": other})
+        tables[mq] = (base, base.with_filters(*filters),
+                      [f.estimate(col) for f in filters])
+    (_, want, want_est), (base, got, got_est) = tables[jq], tables[tq]
+    assert got_est == want_est
+    assert got.stats() == {"range_scans": 0, "range_hits": 0}
+    for _ in range(2):
+        assert got.est_rows() == want.est_rows()
+        assert [got.ndv_est(c) for c in "ab"] == \
+            [want.ndv_est(c) for c in "ab"]
+    ranged = {f.column for f in got.filters if f.selectivity is None}
+    assert got.stats()["range_scans"] == len(ranged)
+    assert base.stats() == {"range_scans": 0, "range_hits": 0}
+    again = got.with_filters(tq.Filter("b", 0, 1))
+    assert again.stats() == {"range_scans": 0, "range_hits": 0}
+    assert again.est_rows() == want.with_filters(
+        jq.Filter("b", 0, 1)).est_rows()
+
+
 @pytest.mark.parametrize("handoff", ["device", "host"])
 @pytest.mark.parametrize("name", ["star", "chain", "star_cycle",
                                   "star_empty", "variants", "grouped",
