@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.csr_probe import csr_probe_join
+from ..kernels.csr_probe import EXPAND_COUNTERS, csr_expand, csr_lookup
 from ..obs.trace import NULL_TRACER
 from . import hash_table as ht
 from .partition import Partitions, partition_n1, partition_n2, partition_n3, \
@@ -132,11 +132,12 @@ def partitioned_join(rel_r: Relation, rel_s: Relation, *, total_bits: int,
     buckets aligned to partitions.  Build on R: its tuples are clustered,
     so the (bucket, key) order inside the build is near-sorted.
 
-    The probe is ``csr_probe_join``: on a CUDA device the lookup and
-    expand kernels (``csrc/csr_probe.cu``), on the CPU p2 -> p3 -> p4.
+    The probe is ``csr_probe_join``'s lookup and expand: on a CUDA device
+    the kernels of ``csrc/csr_probe.cu``, on the CPU p2 -> p3 -> p4.
     ``tracer`` spans the build (``join.build``: bucket ids, b2-b4) and
-    the probe (``join.probe``: bucket ids, lookup, scan, expand),
-    device-timed on a CUDA device."""
+    the probe (``join.probe``: bucket ids, lookup, then ``join.expand``:
+    scan and expand), device-timed on a CUDA device; ``join.expand``
+    carries the expand's ``EXPAND_COUNTERS``, counted where it runs."""
     dev = rel_r.key.device
     num_buckets = 1 << (total_bits + shj_bits)
     with tracer.span("join.build", device=dev):
@@ -146,7 +147,15 @@ def partitioned_join(rel_r: Relation, rel_s: Relation, *, total_bits: int,
     with tracer.span("join.probe", device=dev):
         pbkt = partition_bucket_ids(rel_s.key, total_bits=total_bits,
                                     shj_bits=shj_bits)
-        return csr_probe_join(table, pbkt, rel_s.key, rel_s.rid, max_out)
+        entry, nmatch = csr_lookup(table, pbkt, rel_s.key)
+        with tracer.span("join.expand", device=dev) as span:
+            counters = None if span is None else torch.zeros(
+                len(EXPAND_COUNTERS), dtype=torch.int64, device=dev)
+            out = csr_expand(table, rel_s.rid, entry, nmatch, max_out,
+                             counters=counters)
+            if span is not None:
+                span.count(EXPAND_COUNTERS, counters)
+        return out
 
 
 def phj_join(build_rel: Relation, probe_rel: Relation, *,

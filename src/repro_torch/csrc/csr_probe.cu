@@ -22,7 +22,11 @@
 //     (rid[i], rids[key_rid_start[entry[i]] + j]) to slots offs[i] -
 //     nmatch[i] + j below max_out; slots [total, max_out) get -1, and
 //     count = min(total, max_out): the `JoinResult` of `probe_p4`, whose
-//     index clamps are kept.
+//     index clamps are kept.  Given a `counters` buffer, it also adds the
+//     pairs its probes match (counters[0]) and those of the warp-written
+//     heavy lists (counters[1]), and raises counters[2] to the longest
+//     rid list one probe tuple matched: from the counts each thread
+//     loads anyway, one warp reduction and one atomic each per warp.
 //
 // Bound: bytes.  At 2^24 x 2^24 with 2^22 buckets and max_out = 2^26 +
 // 1088 the lookup reads S's bucket ids and keys (128 MB), the headers
@@ -136,8 +140,8 @@ __global__ void __launch_bounds__(THREADS) csr_expand_kernel(
     const int32_t* __restrict__ nmatch, const int32_t* __restrict__ offs,
     const int32_t* __restrict__ rstart, const int32_t* __restrict__ rids,
     int32_t* __restrict__ out_probe, int32_t* __restrict__ out_build,
-    int32_t* __restrict__ count, long long n, long long cap,
-    long long max_out) {
+    int32_t* __restrict__ count, unsigned long long* __restrict__ counters,
+    long long n, long long cap, long long max_out) {
   const long long total = n > 0 ? __ldg(offs + n - 1) : 0;
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -145,6 +149,7 @@ __global__ void __launch_bounds__(THREADS) csr_expand_kernel(
   if (tid == 0) *count = static_cast<int32_t>(total < max_out ? total
                                                                : max_out);
   const int lane = threadIdx.x & 31;
+  unsigned long long pairs = 0, heavy_pairs = 0, longest = 0;
   // Warp-uniform trip count: every lane takes part in the ballot.
   for (long long base = tid - lane; base < n; base += threads) {
     const long long i = base + lane;
@@ -162,6 +167,10 @@ __global__ void __launch_bounds__(THREADS) csr_expand_kernel(
       }
     }
     const bool heavy = m > HEAVY;
+    const unsigned long long um = m > 0 ? static_cast<unsigned>(m) : 0u;
+    pairs += um;
+    heavy_pairs += heavy ? um : 0;
+    longest = um > longest ? um : longest;
     if (!heavy)
       for (int32_t j = 0; j < m; ++j)
         put(out_probe, out_build, rids, st + j, pr, rb + j, cap, max_out);
@@ -176,6 +185,19 @@ __global__ void __launch_bounds__(THREADS) csr_expand_kernel(
           hs + hm < max_out ? static_cast<long long>(hm) : max_out - hs;
       for (long long j = lane; j < stop; j += 32)
         put(out_probe, out_build, rids, hs + j, hp, hb + j, cap, max_out);
+    }
+  }
+  if (counters != nullptr) {   // every lane of every warp reaches here
+    for (int d = 16; d > 0; d >>= 1) {
+      pairs += __shfl_down_sync(FULL, pairs, d);
+      heavy_pairs += __shfl_down_sync(FULL, heavy_pairs, d);
+      const unsigned long long o = __shfl_down_sync(FULL, longest, d);
+      longest = o > longest ? o : longest;
+    }
+    if (lane == 0 && pairs > 0) {
+      atomicAdd(counters, pairs);
+      if (heavy_pairs > 0) atomicAdd(counters + 1, heavy_pairs);
+      atomicMax(counters + 2, longest);
     }
   }
   // Slots [total, max_out): -1, with 16-byte stores between the 4-aligned
@@ -236,18 +258,20 @@ extern "C" int csr_lookup(const int32_t* bkt, const int32_t* key,
 
 // prid, entry, nmatch, offs (the inclusive scan of nmatch): (n,) int32;
 // rstart: (num_keys,) int32; rids: (cap,) int32; out_probe, out_build:
-// (max_out,) int32, 16-byte aligned; count: () int32.
+// (max_out,) int32, 16-byte aligned; count: () int32; counters: null, or
+// (3,) 64-bit counts (pairs, heavy pairs, longest list) added to.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int csr_expand(const int32_t* prid, const int32_t* entry,
                           const int32_t* nmatch, const int32_t* offs,
                           const int32_t* rstart, const int32_t* rids,
                           int32_t* out_probe, int32_t* out_build,
-                          int32_t* count, long long n, long long cap,
-                          long long max_out, void* stream) {
+                          int32_t* count, unsigned long long* counters,
+                          long long n, long long cap, long long max_out,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long work = n > max_out / 4 ? n : max_out / 4;
   csr_expand_kernel<<<blocks_for(work, 16), THREADS, 0, s>>>(
-      prid, entry, nmatch, offs, rstart, rids, out_probe, out_build, count, n,
-      cap, max_out);
+      prid, entry, nmatch, offs, rstart, rids, out_probe, out_build, count,
+      counters, n, cap, max_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,13 @@ fallback between the two.  ``csr_probe_join`` is the whole probe: lookup,
 the inclusive scan of the match counts (``torch.cumsum``, as ``probe_p4``
 takes it), expand.  Every array equals the plain steps' bit for bit on a
 table that ``table_from_buckets`` built.
+
+``csr_expand`` also counts, where given a ``counters`` tensor, what it
+expanded (``EXPAND_COUNTERS``): the pairs its probes match, those of rid
+lists longer than ``HEAVY`` (on the card a whole warp writes such a
+list), and the longest list one probe tuple matched.  The kernel counts
+from the match counts it loads anyway; the CPU computes the same numbers
+from ``nmatch``.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import torch
 from .._build import I64, PTR, kernel, launch
 
 INT32_MAX = 2**31 - 1
+HEAVY = 8            # csrc/csr_probe.cu: longer rid lists are warp-written
+EXPAND_COUNTERS = ("pairs", "heavy_pairs", "warp_max_pairs")
 
 
 def csr_lookup_plain(table, bkt: torch.Tensor, key: torch.Tensor):
@@ -73,16 +82,44 @@ def csr_lookup(table, bkt: torch.Tensor, key: torch.Tensor):
     return entry, nmatch
 
 
+def count_expand_plain(nmatch: torch.Tensor, counters: torch.Tensor
+                       ) -> None:
+    """Add ``EXPAND_COUNTERS`` of the match counts ``nmatch`` to
+    ``counters``: the pairs, those of lists longer than ``HEAVY``, and the
+    longest list (a maximum, not a sum)."""
+    m = nmatch.to(torch.int64)
+    counters[0] += m.sum()
+    counters[1] += m[m > HEAVY].sum()
+    if m.numel():
+        counters[2] = torch.maximum(counters[2], m.max())
+
+
+def _check_counters(dev: torch.device, counters) -> None:
+    if counters is None:
+        return
+    if (counters.device != dev or counters.dtype != torch.int64
+            or counters.shape != (len(EXPAND_COUNTERS),)
+            or not counters.is_contiguous()):
+        raise ValueError(f"counters must be a contiguous (3,) int64 tensor "
+                         f"on {dev}, got {tuple(counters.shape)} "
+                         f"{counters.dtype} on {counters.device}")
+
+
 def csr_expand(table, probe_rid: torch.Tensor, entry: torch.Tensor,
-               nmatch: torch.Tensor, max_out: int):
+               nmatch: torch.Tensor, max_out: int, counters=None):
     """The matching ``(probe_rid, build_rid)`` pairs in probe order, then
     rid-list order, truncated at ``max_out`` slots and padded with -1:
     ``probe_p4``'s ``JoinResult``.  probe_rid, entry, nmatch: (n,) int32,
-    ``(entry, nmatch)`` as ``csr_lookup`` gives them."""
+    ``(entry, nmatch)`` as ``csr_lookup`` gives them.  ``counters``, a
+    (3,) int64 tensor on the probe's device, gets ``EXPAND_COUNTERS``
+    added (the last raised to its maximum), on the device's stream."""
     from repro_torch.core.hash_table import JoinResult
 
     dev = probe_rid.device
+    _check_counters(dev, counters)
     if dev.type == "cpu":
+        if counters is not None:
+            count_expand_plain(nmatch, counters)
         return csr_expand_plain(table, probe_rid, entry, nmatch, max_out)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -98,11 +135,14 @@ def csr_expand(table, probe_rid: torch.Tensor, entry: torch.Tensor,
     out_probe = torch.empty(max_out, dtype=torch.int32, device=dev)
     out_build = torch.empty(max_out, dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    launch(kernel("csr_probe", "csr_expand", *[PTR] * 9, I64, I64, I64, PTR),
+    launch(kernel("csr_probe", "csr_expand", *[PTR] * 10, I64, I64, I64,
+                  PTR),
            dev, probe_rid.data_ptr(), entry.data_ptr(), nmatch.data_ptr(),
            offs.data_ptr(), table.key_rid_start.data_ptr(),
            table.rids.data_ptr(), out_probe.data_ptr(), out_build.data_ptr(),
-           count.data_ptr(), n, table.capacity, max_out)
+           count.data_ptr(),
+           None if counters is None else counters.data_ptr(),
+           n, table.capacity, max_out)
     return JoinResult(out_probe, out_build, count)
 
 

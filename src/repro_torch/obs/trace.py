@@ -32,6 +32,12 @@ reading the spans calls: the join service reads a query's spans once it
 has released its device-group locks.  Until then ``device_s`` is
 ``None``, as it stays for untimed spans and CPU devices.
 
+Counts a span gathers on the card (:meth:`_ActiveSpan.count`, e.g. the
+CSR expand's pairs) are copied to pinned host memory on the span's
+stream before its closing event, and enter its ``attrs`` when
+:meth:`Tracer.resolve_device` finds that event passed: no wait on the
+host.  Counts in CPU tensors enter ``attrs`` at once.
+
 Exports:
 
   * :meth:`Tracer.chrome_trace` / :meth:`Tracer.write_chrome_trace` —
@@ -88,7 +94,7 @@ class _ActiveSpan:
     returns, and the mutable handle it yields."""
 
     __slots__ = ("tracer", "name", "t0", "attrs", "device", "stream",
-                 "start")
+                 "start", "counts")
 
     def __init__(self, tracer: "Tracer", name: str, device, attrs: dict):
         self.tracer = tracer
@@ -96,11 +102,28 @@ class _ActiveSpan:
         self.device = device
         self.attrs = attrs
         self.start = None
+        self.counts = []
 
     def set(self, **attrs) -> None:
         """Attach attributes discovered mid-span (e.g. the chosen plan's
         scheme, known only after planning but ambient for the phases)."""
         self.attrs.update((k, v) for k, v in attrs.items() if v is not None)
+
+    def count(self, names, values: torch.Tensor) -> None:
+        """Attach integer counts ``values`` (a 1-D tensor) under
+        ``names``.  A CUDA tensor is read once the span's closing event
+        has passed (the span must be device-timed on its device); a CPU
+        tensor at once."""
+        if values.device.type != "cuda":
+            self.attrs.update(zip(names, values.tolist()))
+            return
+        if self.start is None:
+            raise ValueError(f"counts on {values.device} in a span not "
+                             f"device-timed")
+        host = torch.empty(values.shape, dtype=values.dtype,
+                           pin_memory=True)
+        host.copy_(values, non_blocking=True)
+        self.counts.append((tuple(names), host))
 
     def __enter__(self) -> "_ActiveSpan":
         tracer = self.tracer
@@ -130,7 +153,7 @@ class _ActiveSpan:
         tracer._stack().pop()
         tracer._finish(SpanRecord(self.name, self.t0, tracer.now(),
                                   threading.current_thread().name,
-                                  self.attrs), timed)
+                                  self.attrs), timed, self.counts)
         return False
 
 
@@ -169,9 +192,11 @@ class Tracer:
         self._local = threading.local()
         self._key_seq = itertools.count(1)
         # Free CUDA timing events, per device, and the device-timed spans
-        # not yet resolved: (record, device, start event, end event).
+        # not yet resolved: (record, device, start event, end event), with
+        # their counts by id(record): [(names, pinned host counts)].
         self._events: dict = {}
         self._pending: list = []
+        self._pending_counts: dict = {}
 
     @property
     def dropped(self) -> int:
@@ -225,9 +250,10 @@ class Tracer:
 
     def resolve_device(self) -> None:
         """Set ``device_s`` on the device-timed spans whose closing event
-        the device has passed, and return their events to the pool.  It
-        never waits: a span the device has not passed stays pending for
-        the next call.  :meth:`spans` and :meth:`spans_for` call it."""
+        the device has passed, with their counts, and return their events
+        to the pool.  It never waits: a span the device has not passed
+        stays pending for the next call.  :meth:`spans` and
+        :meth:`spans_for` call it."""
         if not self._pending:
             return
         with self._lock:
@@ -235,8 +261,13 @@ class Tracer:
         done, left = [], []
         for item in pending:
             (done if item[3].query() else left).append(item)
-        for rec, _, start, end in done:
+        with self._lock:
+            counts = [self._pending_counts.pop(id(item[0]), ())
+                      for item in done]
+        for (rec, _, start, end), held in zip(done, counts):
             rec.device_s = start.elapsed_time(end) / 1e3
+            for names, host in held:
+                rec.attrs.update(zip(names, host.tolist()))
         with self._lock:
             self._pending[:0] = left
             for _, device, start, end in done:
@@ -272,10 +303,12 @@ class Tracer:
         self._finish(SpanRecord(name, t, t,
                                 threading.current_thread().name, attrs))
 
-    def _finish(self, rec: SpanRecord, timed=None) -> None:
+    def _finish(self, rec: SpanRecord, timed=None, counts=()) -> None:
         with self._lock:
             if timed is not None:
                 self._pending.append((rec, *timed))
+                if counts:
+                    self._pending_counts[id(rec)] = counts
             if self.max_spans <= 0:
                 self._dropped += 1
                 return

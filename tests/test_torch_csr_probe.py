@@ -12,8 +12,10 @@ import repro_torch.core as tc
 from repro_torch.core import hash_table as ht
 from repro_torch.core.phj import partitioned_join
 from repro_torch.kernels import launch_counts
-from repro_torch.kernels.csr_probe import (csr_expand, csr_lookup,
+from repro_torch.kernels.csr_probe import (EXPAND_COUNTERS, HEAVY,
+                                           csr_expand, csr_lookup,
                                            csr_probe_join, ref)
+from repro_torch.obs.trace import Tracer
 from repro_torch.ops import join_variants as jv
 
 from _torch_parity import assert_same, relation
@@ -126,3 +128,64 @@ def test_cpu_partitioned_join_launches_no_kernel():
     res = partitioned_join(b, p, total_bits=3, shj_bits=2, max_out=10000)
     assert launch_counts()["csr_probe"] == before
     assert np.array_equal(res.valid_pairs(), tc.join_oracle(b, p))
+
+
+def _expected_counts(nmatch) -> list[int]:
+    m = nmatch.numpy().astype(np.int64)
+    return [int(m.sum()), int(m[m > HEAVY].sum()), int(m.max(initial=0))]
+
+
+@pytest.mark.parametrize("name", ref.CASES)
+def test_cpu_expand_counts_pairs_heavy_pairs_and_longest_list(name):
+    """``csr_expand``'s counters on the CPU: the pairs matched, those of
+    rid lists longer than ``HEAVY``, the longest list; added to what the
+    tensor holds (the longest raised), and the result unchanged."""
+    table, pbkt, pk, prid, mo = _case(name)
+    entry, nmatch, want = _plain(table, pbkt, pk, prid, mo)
+    counters = torch.zeros(len(EXPAND_COUNTERS), dtype=torch.int64)
+    _same(csr_expand(table, prid, entry, nmatch, mo, counters=counters),
+          want)
+    pairs, heavy, longest = _expected_counts(nmatch)
+    assert counters.tolist() == [pairs, heavy, longest]
+    csr_expand(table, prid, entry, nmatch, mo, counters=counters)
+    assert counters.tolist() == [2 * pairs, 2 * heavy, longest]
+    if name == "hot_key_4096":
+        assert heavy >= 4096 and longest == 4096
+
+
+@pytest.mark.parametrize("bad", [
+    torch.zeros(3, dtype=torch.int32),          # not int64
+    torch.zeros(4, dtype=torch.int64),          # not three counts
+    torch.zeros(6, dtype=torch.int64)[::2],     # not contiguous
+])
+def test_cpu_expand_rejects_bad_counters(bad):
+    table, pbkt, pk, prid, mo = _case("hot_key_4096")
+    entry, nmatch, _ = _plain(table, pbkt, pk, prid, mo)
+    with pytest.raises(ValueError):
+        csr_expand(table, prid, entry, nmatch, mo, counters=bad)
+
+
+def test_traced_partitioned_join_spans_the_expand_with_its_counts():
+    """``join.expand`` nests in ``join.probe`` and carries the counts of
+    the probe's match counts; an untraced join records nothing and
+    answers the same."""
+    rng = np.random.default_rng(3)
+    bk = np.concatenate([rng.integers(0, 3000, 4000), np.full(500, 5000)])
+    pk = np.concatenate([rng.integers(0, 3000, 4000), [5000, 5000]])
+    b, p = (tc.Relation(torch.arange(len(k), dtype=torch.int32),
+                        torch.from_numpy(k.astype(np.int32)))
+            for k in (bk, pk))
+    tr = Tracer()
+    kw = dict(total_bits=3, shj_bits=2, max_out=20000)
+    res = partitioned_join(b, p, tracer=tr, **kw)
+    spans = {s.name: s for s in tr.spans()}
+    assert list(spans) == ["join.build", "join.expand", "join.probe"]
+    probe, expand = spans["join.probe"], spans["join.expand"]
+    assert probe.t0 <= expand.t0 <= expand.t1 <= probe.t1
+    sbk = np.sort(bk)
+    m = torch.from_numpy(np.searchsorted(sbk, pk, "right")
+                         - np.searchsorted(sbk, pk, "left"))
+    assert [expand.attrs[k] for k in EXPAND_COUNTERS] == _expected_counts(m)
+    assert expand.attrs["warp_max_pairs"] == 500
+    assert expand.attrs["pairs"] == int(res.count)
+    _same(partitioned_join(b, p, **kw), res)

@@ -203,6 +203,72 @@ def test_phj_query_launches_match_the_roofline_model(dev):
         assert counts["csr_probe"] == 2, counts
 
 
+def _heavy_list_join():
+    """One key with 2^20 build tuples among 2^16 keys with 1-16 each
+    (shuffled), probed by every short key once, the hot key three times
+    and 100 keys that match nothing (shuffled)."""
+    g = torch.Generator().manual_seed(11)
+    hot = 1 << 20
+    short = torch.randint(1, 17, (1 << 16,), generator=g)
+    bk = torch.cat([torch.full((1 << 20,), hot),
+                    torch.repeat_interleave(torch.arange(1 << 16), short)])
+    bk = bk[torch.randperm(bk.shape[0], generator=g)].to(torch.int32)
+    pk = torch.cat([torch.arange(1 << 16), torch.full((3,), hot),
+                    torch.arange(1 << 21, (1 << 21) + 100)])
+    pk = pk[torch.randperm(pk.shape[0], generator=g)].to(torch.int32)
+    return (tc.Relation(torch.arange(bk.shape[0], dtype=torch.int32), bk),
+            tc.Relation(torch.arange(pk.shape[0], dtype=torch.int32), pk))
+
+
+@pytest.mark.parametrize("truncated", [False, True])
+def test_csr_expand_counts_a_2_20_rid_list_exactly(dev, truncated):
+    """The expand on a table with one 2^20-rid list (warp-written) and
+    many short ones: its pairs equal the plain expand's and its counters
+    ``count_expand_plain``'s, exactly, with the slots cut short or not."""
+    b, p = _heavy_list_join()
+    table = ht.build_hash_table(b, 1 << 14)
+    bkt = ht.probe_p1(p.key, table.num_buckets)
+    entry, nmatch = kcsr.csr_lookup_plain(table, bkt, p.key)
+    total = int(nmatch.sum(dtype=torch.int64))
+    assert int(nmatch.max()) == 1 << 20 and total > 3 << 20
+    mo = total // 2 if truncated else total + 64
+    want = torch.zeros(len(kcsr.EXPAND_COUNTERS), dtype=torch.int64)
+    kcsr.count_expand_plain(nmatch, want)
+    gtable, grid, gentry, gnmatch = (x.to(dev) for x in
+                                     (table, p.rid, entry, nmatch))
+    counters = torch.zeros_like(want, device=dev)
+    got = kcsr.csr_expand(gtable, grid, gentry, gnmatch, mo,
+                          counters=counters)
+    _same_result(got, kcsr.csr_expand_plain(gtable, grid, gentry, gnmatch,
+                                            mo))
+    assert counters.tolist() == want.tolist()
+    assert want.tolist() == [total, int(nmatch[nmatch > kcsr.HEAVY].sum()),
+                             1 << 20]
+
+
+def test_traced_partitioned_join_counts_its_expand_on_the_card(dev):
+    """``partitioned_join`` traced on the card: ``join.expand`` is timed
+    inside ``join.probe`` and carries the counts the CPU's traced join
+    gives, once the device has passed it; the answer is the CPU's."""
+    from repro_torch.obs.trace import Tracer
+
+    b, p = _heavy_list_join()
+    kw = dict(total_bits=7, shj_bits=6, max_out=4 << 20)
+    cpu, card = Tracer(), Tracer()
+    want = partitioned_join(b, p, tracer=cpu, **kw)
+    got = partitioned_join(b.to(dev), p.to(dev), tracer=card, **kw)
+    torch.cuda.synchronize()
+    _same_result(got.to("cpu"), want)
+    spans = {s.name: s for s in card.spans()}
+    expand, probe = spans["join.expand"], spans["join.probe"]
+    assert 0 < expand.device_s <= probe.device_s
+    (cpu_expand,) = [s for s in cpu.spans() if s.name == "join.expand"]
+    names = kcsr.EXPAND_COUNTERS
+    assert [expand.attrs[k] for k in names] == \
+        [cpu_expand.attrs[k] for k in names]
+    assert expand.attrs["warp_max_pairs"] == 1 << 20
+
+
 def test_csr_probe_wrappers_reject_bad_inputs(dev):
     brid, bk, bkt, nb, prid, pk, pbkt, mo = csr_ref.csr_case("truncated")
     table = ht.table_from_buckets(
