@@ -350,8 +350,10 @@ PROBE_BITS = 13             # the planner's (7, 6) schedule at 2^24
 # The CSR probe's check and timing: the PHJ join phase's probe at the main
 # path's shape (2^24 x 2^24 after the (7, 6) schedule, 13 + 9 bits), with
 # the service's max_out at 2^24 (4 n + 1088) and half the pairs, on the
-# uniform pair and on ``csr_probe.ref.zipf_pair`` (S Zipf-skewed, keys of
-# R with 4096 tuples each), after the edge cases ``csr_probe.ref.CASES``.
+# uniform pair, on ``csr_probe.ref.zipf_pair`` (S Zipf-skewed, keys of
+# R with 4096 tuples each) and on ``csr_probe.ref.zipf_build_pair`` (R Zipf
+# 1.0, S unique keys: the hottest list ~975k rids, split across the
+# expand's second grid), after the edge cases ``csr_probe.ref.CASES``.
 CSR_MAX_OUT = 4 * N_MAIN + 1088
 # (P, K, M) of kernel F's check, each on sorted and on permuted rows:
 # P in {1, 16, 2^13} x K in {1, 8, 36, 37, 2304}, a row past the 48 KB
@@ -661,8 +663,8 @@ def run_main_path(dev) -> dict:
     log(f"  phj_join wall {wall_ms:.3f} ms (CUDA events), launches {counts}")
     for name in JOIN_KERNELS:
         assert counts[name] > 0, f"main path never launched {name}"
-    # The join phase's probe: the CSR lookup and expand, once each.
-    assert counts["csr_probe"] == 2, counts
+    # The join phase's probe: the CSR lookup, then the expand's two grids.
+    assert counts["csr_probe"] == 3, counts
     assert res.probe_rid.device.type == "cuda"
     verify(res, exp, "phj_join 2^24 x 2^24")
     return {"schedule": list(sched), "wall_ms": wall_ms, "launches": counts}
@@ -685,7 +687,7 @@ def run_coprocessor(dev) -> dict:
         log(f"  {scheme} n={n}: phases {t.phase_s}, launches {counts}")
         for name in JOIN_KERNELS:
             assert counts[name] > 0, f"{scheme} never launched {name}"
-        assert counts["csr_probe"] == 2, (scheme, counts)
+        assert counts["csr_probe"] == 3, (scheme, counts)
         verify(res, exp, f"CoProcessor.phj {scheme}")
         out[scheme] = {"n": n, "phase_s": t.phase_s, "launches": counts}
     return out
@@ -927,7 +929,7 @@ def csr_probe_err(table, pbkt, key, rid, max_outs) -> int:
 def check_csr_probe(dev) -> dict[str, int]:
     """Phases 2-3, continued: the CSR lookup and expand against the plain
     steps p2 -> p3 and p4, bit for bit, on ``csr_ref.CASES`` and at the
-    main path's shape, uniform and Zipf-skewed."""
+    main path's shape, uniform and Zipf-skewed on either side."""
     err = 0
     for name in csr_ref.CASES:
         brid, bk, bkt, nb, prid, pk, pbkt, mo = (
@@ -938,7 +940,7 @@ def check_csr_probe(dev) -> dict[str, int]:
         log(f"  csr case {name}: err={e}")
         assert e == 0, ("csr_probe", name, e)
         err = max(err, e)
-    for kind in ("uniform", "zipf"):
+    for kind in ("uniform", "zipf", "build_skew"):
         table, pbkt, s = csr_probe_inputs(dev, kind)
         _, nmatch = kcsr.csr_lookup(table, pbkt, s.key)
         total = int(nmatch.sum(dtype=torch.int64))
@@ -1110,8 +1112,26 @@ def time_probe_kernel(dev) -> dict:
 def time_csr_probe(dev) -> dict:
     """Phase 6, continued: the CSR probe (lookup, scan, expand) at the
     main path's shape on the uniform pair, beside its bytes bound and the
-    plain steps p2 -> p3 -> p4."""
-    table, pbkt, s = csr_probe_inputs(dev, "uniform")
+    plain steps p2 -> p3 -> p4; and the expand alone (scan, both grids)
+    on the uniform pair and on the build-skewed pair (``build_skew``: the
+    hottest rid list ~975k long), with its counters."""
+    expand = {}
+    for kind in ("build_skew", "uniform"):
+        table, pbkt, s = csr_probe_inputs(dev, kind)
+        entry, nmatch = kcsr.csr_lookup(table, pbkt, s.key)
+        counters = torch.zeros(len(kcsr.EXPAND_COUNTERS), dtype=torch.int64,
+                               device=dev)
+        kcsr.csr_expand(table, s.rid, entry, nmatch, CSR_MAX_OUT,
+                        counters=counters)
+        expand[kind] = {
+            "expand_ms": cuda_ms(lambda: kcsr.csr_expand(
+                table, s.rid, entry, nmatch, CSR_MAX_OUT)),
+            **dict(zip(kcsr.EXPAND_COUNTERS, counters.tolist()))}
+        log(f"  csr_expand {kind}: {expand[kind]}")
+        del entry, nmatch
+        if kind != "uniform":
+            del table, pbkt, s
+            torch.cuda.empty_cache()
     mo = CSR_MAX_OUT
 
     def run():
@@ -1131,7 +1151,8 @@ def time_csr_probe(dev) -> dict:
                                        "hash table",
         "bound_ms": sum(nbytes.values()) / HBM_BYTES_PER_S * 1e3,
         "bound_ms_by_step": {k: v / HBM_BYTES_PER_S * 1e3
-                             for k, v in nbytes.items()}}
+                             for k, v in nbytes.items()},
+        "expand_alone": expand, "split": kcsr.SPLIT}
     log(f"  csr_probe: {row}")
     del table, pbkt, s
     torch.cuda.empty_cache()

@@ -10,8 +10,8 @@
 // over every probe tuple where a bucket holds about 4 keys, and p4 searched
 // the offsets once per output slot (2^26 slots at 2^24).
 //
-// Two kernels, with the inclusive scan of the match counts (`torch.cumsum`)
-// between them:
+// Three kernels, the inclusive scan of the match counts (`torch.cumsum`)
+// between the first two:
 //   * `csr_lookup_kernel` (p2 + p3): for probe tuple i, the bucket header
 //     (`bstart[b]`, `bcount[b]`, b = bkt[i]) and the leftmost key of the
 //     bucket's list not below key[i] as uint32.  `entry[i]` is that key's
@@ -22,11 +22,22 @@
 //     (rid[i], rids[key_rid_start[entry[i]] + j]) to slots offs[i] -
 //     nmatch[i] + j below max_out; slots [total, max_out) get -1, and
 //     count = min(total, max_out): the `JoinResult` of `probe_p4`, whose
-//     index clamps are kept.  Given a `counters` buffer, it also adds the
-//     pairs its probes match (counters[0]) and those of the warp-written
-//     heavy lists (counters[1]), and raises counters[2] to the longest
-//     rid list one probe tuple matched: from the counts each thread
-//     loads anyway, one warp reduction and one atomic each per warp.
+//     index clamps are kept.  A rid list longer than SPLIT whose first
+//     slot lies below max_out is not written here: the probe's index is
+//     queued (one warp-aggregated atomic on the queue's length) for the
+//     third kernel.  Given a `counters` buffer, it also adds the pairs
+//     its probes match (counters[0]), those of lists longer than HEAVY
+//     (counters[1]) and of lists longer than SPLIT (counters[3]), and
+//     raises counters[2] to the longest rid list one probe tuple matched:
+//     from the counts each thread loads anyway, one warp reduction and
+//     one atomic each per warp.
+//   * `csr_expand_split_kernel`, launched right after on the same stream
+//     with a fixed grid, cuts each queued list's slots below max_out
+//     into pieces of PIECE slots (at multiples of PIECE) and hands the
+//     pieces of all lists to its blocks round robin: a block writes a
+//     piece with consecutive threads on consecutive slots, 16-byte stores
+//     between its 4-aligned ends.  Slots come from the offsets, so
+//     whichever block writes a slot, the output is the same.
 //
 // Bound: bytes.  At 2^24 x 2^24 with 2^22 buckets and max_out = 2^26 +
 // 1088 the lookup reads S's bucket ids and keys (128 MB), the headers
@@ -44,11 +55,17 @@
 //     partition, whose 2^9 headers (4 KB) and key list (about 8 KB) the
 //     neighbouring blocks read from L1 and L2: device memory sees each
 //     header and key about once;
-//   * warp-spread heavy lists: a probe with at most HEAVY matches writes
-//     them itself, and neighbouring lanes write neighbouring slots; a
-//     longer rid list is written by the whole warp, 32 slots a round, so a
-//     key that matches thousands of build tuples does not serialise one
-//     thread and its writes stay coalesced;
+//   * three paths by list length, chosen per probe tuple from its match
+//     count: a probe with at most HEAVY matches writes them itself, and
+//     neighbouring lanes write neighbouring slots; a list of HEAVY + 1 to
+//     SPLIT rids is written by the whole warp, 32 slots a round, so a key
+//     that matches thousands of build tuples does not serialise one
+//     thread and its writes stay coalesced; a longer list is split across
+//     the second grid's blocks, so a Zipf key's ~975k rids (30k rounds of
+//     one warp, while the rest of the card idles) take the whole card.
+//     SPLIT = 2048 is 64 warp rounds, about where one warp's list outlasts
+//     an even share of the expand; where no list is longer, nothing is
+//     queued and the second launch reads an empty queue and returns;
 //   * the slots past the matches, three quarters of the output at 2^24,
 //     are filled with 16-byte stores.
 #include <cuda_runtime.h>
@@ -60,6 +77,9 @@ constexpr int THREADS = 256;
 constexpr int GROUP = 4;         // keys of a list in flight together
 constexpr int LINEAR_MAX = 16;   // longer lists are binary-searched
 constexpr int HEAVY = 8;         // longer rid lists are written by the warp
+constexpr int SPLIT = 2048;      // longer ones are split across blocks
+constexpr int PIECE = 2048;      // slots of a split list a block writes
+constexpr int SPLIT_PER_SM = 4;  // the split grid's blocks per SM
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __global__ void __launch_bounds__(THREADS) csr_lookup_kernel(
@@ -135,13 +155,22 @@ __device__ __forceinline__ void put(int32_t* __restrict__ out_probe,
   out_build[slot] = cap > 0 ? __ldg(rids + bp) : -1;
 }
 
+// The rid at list position bp, clamped as `put` clamps it.
+__device__ __forceinline__ int32_t rid_at(const int32_t* __restrict__ rids,
+                                          long long bp, long long cap) {
+  if (cap <= 0) return -1;
+  bp = bp < 0 ? 0 : (bp >= cap ? cap - 1 : bp);
+  return __ldg(rids + bp);
+}
+
 __global__ void __launch_bounds__(THREADS) csr_expand_kernel(
     const int32_t* __restrict__ prid, const int32_t* __restrict__ entry,
     const int32_t* __restrict__ nmatch, const int32_t* __restrict__ offs,
     const int32_t* __restrict__ rstart, const int32_t* __restrict__ rids,
     int32_t* __restrict__ out_probe, int32_t* __restrict__ out_build,
     int32_t* __restrict__ count, unsigned long long* __restrict__ counters,
-    long long n, long long cap, long long max_out) {
+    unsigned long long* __restrict__ queue, long long qcap, long long n,
+    long long cap, long long max_out) {
   const long long total = n > 0 ? __ldg(offs + n - 1) : 0;
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -149,7 +178,8 @@ __global__ void __launch_bounds__(THREADS) csr_expand_kernel(
   if (tid == 0) *count = static_cast<int32_t>(total < max_out ? total
                                                                : max_out);
   const int lane = threadIdx.x & 31;
-  unsigned long long pairs = 0, heavy_pairs = 0, longest = 0;
+  unsigned long long pairs = 0, heavy_pairs = 0, split_pairs = 0,
+                     longest = 0;
   // Warp-uniform trip count: every lane takes part in the ballot.
   for (long long base = tid - lane; base < n; base += threads) {
     const long long i = base + lane;
@@ -166,15 +196,29 @@ __global__ void __launch_bounds__(THREADS) csr_expand_kernel(
         rb = __ldg(rstart + e);
       }
     }
-    const bool heavy = m > HEAVY;
+    const bool heavy = m > HEAVY, split = m > SPLIT;
     const unsigned long long um = m > 0 ? static_cast<unsigned>(m) : 0u;
     pairs += um;
     heavy_pairs += heavy ? um : 0;
+    split_pairs += split ? um : 0;
     longest = um > longest ? um : longest;
     if (!heavy)
       for (int32_t j = 0; j < m; ++j)
         put(out_probe, out_build, rids, st + j, pr, rb + j, cap, max_out);
-    for (unsigned todo = __ballot_sync(FULL, heavy); todo;
+    // A split list with a slot below max_out goes to the queue; one past
+    // it has nothing to write.
+    const unsigned queued = __ballot_sync(FULL, split && st < max_out);
+    if (queued) {
+      const int first = __ffs(queued) - 1;
+      const unsigned long long k = __popc(queued);
+      unsigned long long at = 0;
+      if (lane == first) at = atomicAdd(queue, k);
+      at = __shfl_sync(FULL, at, first) +
+           static_cast<unsigned>(__popc(queued & ((1u << lane) - 1u)));
+      if ((queued >> lane & 1u) && at < static_cast<unsigned long long>(qcap))
+        queue[1 + at] = static_cast<unsigned long long>(i);
+    }
+    for (unsigned todo = __ballot_sync(FULL, heavy && !split); todo;
          todo &= todo - 1) {
       const int src = __ffs(todo) - 1;
       const int32_t hm = __shfl_sync(FULL, m, src);
@@ -191,6 +235,7 @@ __global__ void __launch_bounds__(THREADS) csr_expand_kernel(
     for (int d = 16; d > 0; d >>= 1) {
       pairs += __shfl_down_sync(FULL, pairs, d);
       heavy_pairs += __shfl_down_sync(FULL, heavy_pairs, d);
+      split_pairs += __shfl_down_sync(FULL, split_pairs, d);
       const unsigned long long o = __shfl_down_sync(FULL, longest, d);
       longest = o > longest ? o : longest;
     }
@@ -198,6 +243,7 @@ __global__ void __launch_bounds__(THREADS) csr_expand_kernel(
       atomicAdd(counters, pairs);
       if (heavy_pairs > 0) atomicAdd(counters + 1, heavy_pairs);
       atomicMax(counters + 2, longest);
+      if (split_pairs > 0) atomicAdd(counters + 3, split_pairs);
     }
   }
   // Slots [total, max_out): -1, with 16-byte stores between the 4-aligned
@@ -216,6 +262,106 @@ __global__ void __launch_bounds__(THREADS) csr_expand_kernel(
   for (long long q = a / 4 + tid; q < b / 4; q += threads) {
     op[q] = pad;
     ob[q] = pad;
+  }
+}
+
+// Inclusive sum of v over the block's threads (every thread calls it).
+__device__ long long block_inclusive_sum(long long v,
+                                         long long* __restrict__ warp_sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long o = __shfl_up_sync(FULL, v, d);
+    if (lane >= d) v += o;
+  }
+  if (lane == 31) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    long long w = lane < THREADS / 32 ? warp_sums[lane] : 0;
+    for (int d = 1; d < THREADS / 32; d <<= 1) {
+      const long long o = __shfl_up_sync(FULL, w, d);
+      if (lane >= d) w += o;
+    }
+    if (lane < THREADS / 32) warp_sums[lane] = w;
+  }
+  __syncthreads();
+  return v + (warp > 0 ? warp_sums[warp - 1] : 0);
+}
+
+// The lists csr_expand_kernel queued (queue[0] of them, at most qcap, the
+// probes' indices from queue[1]), a THREADS-long chunk of the queue at a
+// time: each list's slots [st, min(st + m, max_out)) are cut at multiples
+// of PIECE, the pieces of the chunk numbered on from the last chunk's,
+// and block b writes the pieces numbered b modulo the grid.
+__global__ void __launch_bounds__(THREADS) csr_expand_split_kernel(
+    const int32_t* __restrict__ prid, const int32_t* __restrict__ entry,
+    const int32_t* __restrict__ nmatch, const int32_t* __restrict__ offs,
+    const int32_t* __restrict__ rstart, const int32_t* __restrict__ rids,
+    int32_t* __restrict__ out_probe, int32_t* __restrict__ out_build,
+    const unsigned long long* __restrict__ queue, long long qcap,
+    long long cap, long long max_out) {
+  __shared__ long long lo[THREADS], hi[THREADS], rb[THREADS], end[THREADS];
+  __shared__ int32_t pr[THREADS];
+  __shared__ long long warp_sums[THREADS / 32];
+  const int t = threadIdx.x;
+  const unsigned long long queued = __ldg(queue);
+  const long long len =
+      queued < static_cast<unsigned long long>(qcap)
+          ? static_cast<long long>(queued) : qcap;
+  int4* op = reinterpret_cast<int4*>(out_probe);
+  int4* ob = reinterpret_cast<int4*>(out_build);
+  long long first = 0;   // number of this chunk's first piece
+  for (long long c = 0; c < len; c += THREADS) {
+    long long pieces = 0;
+    if (c + t < len) {
+      const long long i = static_cast<long long>(__ldg(queue + 1 + c + t));
+      const int32_t m = __ldg(nmatch + i);
+      const long long st = static_cast<long long>(__ldg(offs + i)) - m;
+      const long long stop = st + m < max_out ? st + m : max_out;
+      long long b = 0;
+      if (cap > 0) {
+        int32_t e = __ldg(entry + i);
+        e = e < 0 ? 0 : (e >= cap ? static_cast<int32_t>(cap - 1) : e);
+        b = __ldg(rstart + e);
+      }
+      lo[t] = st;
+      hi[t] = stop;
+      rb[t] = b;
+      pr[t] = __ldg(prid + i);
+      pieces = (stop - 1) / PIECE - st / PIECE + 1;
+    }
+    end[t] = block_inclusive_sum(pieces, warp_sums);
+    __syncthreads();
+    const long long total = end[THREADS - 1];
+    const long long g0 = (first % gridDim.x);
+    for (long long k = (blockIdx.x - g0 + gridDim.x) % gridDim.x; k < total;
+         k += gridDim.x) {
+      int a = 0, z = THREADS - 1;   // the list holding the chunk's piece k
+      while (a < z) {
+        const int mid = (a + z) >> 1;
+        if (end[mid] > k) z = mid; else a = mid + 1;
+      }
+      const long long st = lo[a], b = rb[a];
+      const int32_t p = pr[a];
+      const long long piece = st / PIECE + k - (a > 0 ? end[a - 1] : 0);
+      const long long s0 = st > piece * PIECE ? st : piece * PIECE;
+      const long long s1 =
+          hi[a] < (piece + 1) * PIECE ? hi[a] : (piece + 1) * PIECE;
+      long long a4 = (s0 + 3) & ~3LL, b4 = s1 & ~3LL;
+      if (a4 > b4) a4 = b4 = s1;
+      if (t < a4 - s0) put(out_probe, out_build, rids, s0 + t, p,
+                           b + s0 + t - st, cap, max_out);
+      if (t < s1 - b4) put(out_probe, out_build, rids, b4 + t, p,
+                           b + b4 + t - st, cap, max_out);
+      for (long long q = a4 / 4 + t; q < b4 / 4; q += THREADS) {
+        const long long bp = b + 4 * q - st;
+        op[q] = make_int4(p, p, p, p);
+        ob[q] = make_int4(rid_at(rids, bp, cap), rid_at(rids, bp + 1, cap),
+                          rid_at(rids, bp + 2, cap),
+                          rid_at(rids, bp + 3, cap));
+      }
+    }
+    first += total;
+    __syncthreads();   // the chunk's lists are read before the next's
   }
 }
 
@@ -259,19 +405,43 @@ extern "C" int csr_lookup(const int32_t* bkt, const int32_t* key,
 // prid, entry, nmatch, offs (the inclusive scan of nmatch): (n,) int32;
 // rstart: (num_keys,) int32; rids: (cap,) int32; out_probe, out_build:
 // (max_out,) int32, 16-byte aligned; count: () int32; counters: null, or
-// (3,) 64-bit counts (pairs, heavy pairs, longest list) added to.
+// (4,) 64-bit counts (pairs, heavy pairs, longest list, split pairs) added
+// to; queue: (1 + qcap,) 64-bit, qcap = max_out / SPLIT + 1 (the most
+// lists longer than SPLIT that can start below max_out), its length
+// zeroed here.  Call csr_expand_split with the same arguments next.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int csr_expand(const int32_t* prid, const int32_t* entry,
                           const int32_t* nmatch, const int32_t* offs,
                           const int32_t* rstart, const int32_t* rids,
                           int32_t* out_probe, int32_t* out_build,
                           int32_t* count, unsigned long long* counters,
+                          unsigned long long* queue, long long qcap,
                           long long n, long long cap, long long max_out,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemsetAsync(queue, 0, sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long work = n > max_out / 4 ? n : max_out / 4;
   csr_expand_kernel<<<blocks_for(work, 16), THREADS, 0, s>>>(
       prid, entry, nmatch, offs, rstart, rids, out_probe, out_build, count,
-      counters, n, cap, max_out);
+      counters, queue, qcap, n, cap, max_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The lists csr_expand queued, written by SPLIT_PER_SM blocks per SM
+// (they return at once on an empty queue).  Arguments as csr_expand's.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int csr_expand_split(const int32_t* prid, const int32_t* entry,
+                                const int32_t* nmatch, const int32_t* offs,
+                                const int32_t* rstart, const int32_t* rids,
+                                int32_t* out_probe, int32_t* out_build,
+                                const unsigned long long* queue,
+                                long long qcap, long long cap,
+                                long long max_out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  csr_expand_split_kernel<<<SPLIT_PER_SM * num_sms(), THREADS, 0, s>>>(
+      prid, entry, nmatch, offs, rstart, rids, out_probe, out_build, queue,
+      qcap, cap, max_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,12 +11,21 @@ the inclusive scan of the match counts (``torch.cumsum``, as ``probe_p4``
 takes it), expand.  Every array equals the plain steps' bit for bit on a
 table that ``table_from_buckets`` built.
 
+On the card the expand picks, for each probe tuple, one of three paths
+by its match count: a rid list of at most ``HEAVY`` rids is written by
+its own thread, one of ``HEAVY`` + 1 to ``SPLIT`` by its warp, and a
+longer one (a hot key of a skewed build) is queued by the first kernel
+and split across the blocks of a second, launched right after it, so no
+one warp writes a hot key's whole list.  An expand is two launches; the
+queue (``max_out // SPLIT + 1`` probe indices and its length) is scratch
+of the call.
+
 ``csr_expand`` also counts, where given a ``counters`` tensor, what it
 expanded (``EXPAND_COUNTERS``): the pairs its probes match, those of rid
-lists longer than ``HEAVY`` (on the card a whole warp writes such a
-list), and the longest list one probe tuple matched.  The kernel counts
-from the match counts it loads anyway; the CPU computes the same numbers
-from ``nmatch``.
+lists longer than ``HEAVY``, the longest list one probe tuple matched,
+and the pairs of lists longer than ``SPLIT`` (those the second grid
+writes).  The kernel counts from the match counts it loads anyway; the
+CPU computes the same numbers from ``nmatch``.
 """
 from __future__ import annotations
 
@@ -26,7 +35,8 @@ from .._build import I64, PTR, kernel, launch
 
 INT32_MAX = 2**31 - 1
 HEAVY = 8            # csrc/csr_probe.cu: longer rid lists are warp-written
-EXPAND_COUNTERS = ("pairs", "heavy_pairs", "warp_max_pairs")
+SPLIT = 2048         # csrc/csr_probe.cu: longer ones are split across blocks
+EXPAND_COUNTERS = ("pairs", "heavy_pairs", "warp_max_pairs", "split_pairs")
 
 
 def csr_lookup_plain(table, bkt: torch.Tensor, key: torch.Tensor):
@@ -85,13 +95,15 @@ def csr_lookup(table, bkt: torch.Tensor, key: torch.Tensor):
 def count_expand_plain(nmatch: torch.Tensor, counters: torch.Tensor
                        ) -> None:
     """Add ``EXPAND_COUNTERS`` of the match counts ``nmatch`` to
-    ``counters``: the pairs, those of lists longer than ``HEAVY``, and the
-    longest list (a maximum, not a sum)."""
+    ``counters``: the pairs, those of lists longer than ``HEAVY``, the
+    longest list (a maximum, not a sum), and the pairs of lists longer
+    than ``SPLIT``."""
     m = nmatch.to(torch.int64)
     counters[0] += m.sum()
     counters[1] += m[m > HEAVY].sum()
     if m.numel():
         counters[2] = torch.maximum(counters[2], m.max())
+    counters[3] += m[m > SPLIT].sum()
 
 
 def _check_counters(dev: torch.device, counters) -> None:
@@ -100,7 +112,8 @@ def _check_counters(dev: torch.device, counters) -> None:
     if (counters.device != dev or counters.dtype != torch.int64
             or counters.shape != (len(EXPAND_COUNTERS),)
             or not counters.is_contiguous()):
-        raise ValueError(f"counters must be a contiguous (3,) int64 tensor "
+        raise ValueError(f"counters must be a contiguous "
+                         f"({len(EXPAND_COUNTERS)},) int64 tensor "
                          f"on {dev}, got {tuple(counters.shape)} "
                          f"{counters.dtype} on {counters.device}")
 
@@ -111,8 +124,9 @@ def csr_expand(table, probe_rid: torch.Tensor, entry: torch.Tensor,
     rid-list order, truncated at ``max_out`` slots and padded with -1:
     ``probe_p4``'s ``JoinResult``.  probe_rid, entry, nmatch: (n,) int32,
     ``(entry, nmatch)`` as ``csr_lookup`` gives them.  ``counters``, a
-    (3,) int64 tensor on the probe's device, gets ``EXPAND_COUNTERS``
-    added (the last raised to its maximum), on the device's stream."""
+    (4,) int64 tensor on the probe's device, gets ``EXPAND_COUNTERS``
+    added (``warp_max_pairs`` raised to its maximum), on the device's
+    stream."""
     from repro_torch.core.hash_table import JoinResult
 
     dev = probe_rid.device
@@ -135,14 +149,19 @@ def csr_expand(table, probe_rid: torch.Tensor, entry: torch.Tensor,
     out_probe = torch.empty(max_out, dtype=torch.int32, device=dev)
     out_build = torch.empty(max_out, dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    launch(kernel("csr_probe", "csr_expand", *[PTR] * 10, I64, I64, I64,
-                  PTR),
-           dev, probe_rid.data_ptr(), entry.data_ptr(), nmatch.data_ptr(),
-           offs.data_ptr(), table.key_rid_start.data_ptr(),
-           table.rids.data_ptr(), out_probe.data_ptr(), out_build.data_ptr(),
-           count.data_ptr(),
+    qcap = max_out // SPLIT + 1
+    queue = torch.empty(1 + qcap, dtype=torch.int64, device=dev)
+    args = (probe_rid.data_ptr(), entry.data_ptr(), nmatch.data_ptr(),
+            offs.data_ptr(), table.key_rid_start.data_ptr(),
+            table.rids.data_ptr(), out_probe.data_ptr(), out_build.data_ptr())
+    launch(kernel("csr_probe", "csr_expand", *[PTR] * 11, I64, I64, I64,
+                  I64, PTR),
+           dev, *args, count.data_ptr(),
            None if counters is None else counters.data_ptr(),
-           n, table.capacity, max_out)
+           queue.data_ptr(), qcap, n, table.capacity, max_out)
+    launch(kernel("csr_probe", "csr_expand_split", *[PTR] * 9, I64, I64,
+                  I64, PTR),
+           dev, *args, queue.data_ptr(), qcap, table.capacity, max_out)
     return JoinResult(out_probe, out_build, count)
 
 
@@ -163,6 +182,6 @@ def csr_probe_join(table, bkt: torch.Tensor, key: torch.Tensor,
                    rid: torch.Tensor, max_out: int):
     """The whole probe of the tuples ``(rid, key)`` with bucket ids
     ``bkt`` against ``table``: p2 -> p3 -> p4 as one lookup and one
-    expand (two launches on a CUDA device)."""
+    expand (three launches on a CUDA device)."""
     entry, nmatch = csr_lookup(table, bkt, key)
     return csr_expand(table, rid, entry, nmatch, max_out)

@@ -1,7 +1,8 @@
 """The cases the CSR probe kernels are held to against the plain steps
 p2 -> p3 -> p4 (``CASES``, made by ``csr_case``), and the PHJ join
-phase's probe at full size (``phj_probe_inputs``), uniform or skewed
-(``zipf_pair``), for the card tests and the timings.
+phase's probe at full size (``phj_probe_inputs``), uniform, skewed on
+the probe side (``zipf_pair``) or on the build side (``zipf_build_pair``),
+for the card tests and the timings.
 """
 from __future__ import annotations
 
@@ -99,13 +100,29 @@ def zipf_pair(n: int, *, seed: int = 7):
     return build, probe
 
 
+def zipf_build_pair(n: int, *, s: float = 1.0, seed: int = 7):
+    """Keys of a join of ``n`` x ``n`` tuples skewed on the build side, as
+    NumPy int32: R's keys are Zipf(``s``) ranks over a permutation of
+    ``[0, n)`` (inverse transform of the float64 running sum of k^-s), S
+    holds each key of ``[0, n)`` once, shuffled.  At ``n`` = 2^24 and s =
+    1 the hottest key has about 975k build tuples, as in the
+    ``phj_zipf_16m.build_skew`` cell.  Returns ``(build_key,
+    probe_key)``."""
+    rng = np.random.default_rng(seed)
+    cdf = np.cumsum(np.arange(1, n + 1, dtype=np.float64) ** -s)
+    rank = np.searchsorted(cdf, rng.random(n) * cdf[-1], side="right")
+    perm = rng.permutation(n).astype(np.int32)
+    return perm[np.minimum(rank, n - 1)], rng.permutation(n).astype(np.int32)
+
+
 def phj_probe_inputs(n: int, kind: str, schedule, *, device):
     """The PHJ join phase's probe of R and S, ``n`` tuples each, on
     ``device``: R and S partitioned by ``schedule``, the table
     ``partitioned_join`` builds on R (``phj_bucket_count`` buckets a
     partition) and S's bucket ids.  R and S are uniform (seeds 1 and 2)
     for ``kind`` "uniform", ``zipf_pair``'s keys with the row numbers as
-    rids for "zipf".  Returns ``(R, S, table, pbkt)``."""
+    rids for "zipf", ``zipf_build_pair``'s for "build_skew".  Returns
+    ``(R, S, table, pbkt)``."""
     from repro_torch.core import (Relation, radix_partition_scheduled,
                                   uniform_relation)
     from repro_torch.core.hash_table import table_from_buckets
@@ -114,12 +131,14 @@ def phj_probe_inputs(n: int, kind: str, schedule, *, device):
     if kind == "uniform":
         build = uniform_relation(n, seed=1, device=device)
         probe = uniform_relation(n, seed=2, device=device)
-    elif kind == "zipf":
+    elif kind in ("zipf", "build_skew"):
         rid = torch.arange(n, dtype=torch.int32, device=device)
+        keys = zipf_pair(n) if kind == "zipf" else zipf_build_pair(n)
         build, probe = (Relation(rid, torch.from_numpy(k).to(device))
-                        for k in zipf_pair(n))
+                        for k in keys)
     else:
-        raise ValueError(f"unknown kind {kind!r}: uniform or zipf")
+        raise ValueError(f"unknown kind {kind!r}: uniform, zipf or "
+                         f"build_skew")
     bits = sum(schedule)
     shj = phj_bucket_count(n, bits).bit_length() - 1
     r = radix_partition_scheduled(build, schedule=schedule).rel

@@ -12,9 +12,10 @@ import repro_torch.core as tc
 from repro_torch.core import hash_table as ht
 from repro_torch.core.phj import partitioned_join
 from repro_torch.kernels import launch_counts
-from repro_torch.kernels.csr_probe import (EXPAND_COUNTERS, HEAVY,
+from repro_torch.kernels.csr_probe import (EXPAND_COUNTERS, HEAVY, SPLIT,
                                            csr_expand, csr_lookup,
                                            csr_probe_join, ref)
+from repro_torch.kernels.csr_probe.csr_probe import count_expand_plain
 from repro_torch.obs.trace import Tracer
 from repro_torch.ops import join_variants as jv
 
@@ -132,31 +133,50 @@ def test_cpu_partitioned_join_launches_no_kernel():
 
 def _expected_counts(nmatch) -> list[int]:
     m = nmatch.numpy().astype(np.int64)
-    return [int(m.sum()), int(m[m > HEAVY].sum()), int(m.max(initial=0))]
+    return [int(m.sum()), int(m[m > HEAVY].sum()), int(m.max(initial=0)),
+            int(m[m > SPLIT].sum())]
 
 
 @pytest.mark.parametrize("name", ref.CASES)
 def test_cpu_expand_counts_pairs_heavy_pairs_and_longest_list(name):
     """``csr_expand``'s counters on the CPU: the pairs matched, those of
-    rid lists longer than ``HEAVY``, the longest list; added to what the
-    tensor holds (the longest raised), and the result unchanged."""
+    rid lists longer than ``HEAVY``, the longest list, those of lists
+    longer than ``SPLIT``; added to what the tensor holds (the longest
+    raised), and the result unchanged."""
     table, pbkt, pk, prid, mo = _case(name)
     entry, nmatch, want = _plain(table, pbkt, pk, prid, mo)
     counters = torch.zeros(len(EXPAND_COUNTERS), dtype=torch.int64)
     _same(csr_expand(table, prid, entry, nmatch, mo, counters=counters),
           want)
-    pairs, heavy, longest = _expected_counts(nmatch)
-    assert counters.tolist() == [pairs, heavy, longest]
+    pairs, heavy, longest, split = _expected_counts(nmatch)
+    assert counters.tolist() == [pairs, heavy, longest, split]
     csr_expand(table, prid, entry, nmatch, mo, counters=counters)
-    assert counters.tolist() == [2 * pairs, 2 * heavy, longest]
+    assert counters.tolist() == [2 * pairs, 2 * heavy, longest, 2 * split]
     if name == "hot_key_4096":
         assert heavy >= 4096 and longest == 4096
+        assert split == 4096 * int((nmatch == 4096).sum()) > 0
+    else:
+        assert split == 0
+
+
+@pytest.mark.parametrize("m,split", [(SPLIT - 1, 0), (SPLIT, 0),
+                                     (SPLIT + 1, SPLIT + 1),
+                                     (1 << 20, 1 << 20)])
+def test_cpu_split_pairs_count_lists_longer_than_split(m, split):
+    """``split_pairs`` is 0 for lists of at most ``SPLIT`` rids and the
+    list's length above it, beside lists of 0 to ``HEAVY`` + 1 rids."""
+    nmatch = torch.tensor([0, 1, HEAVY, HEAVY + 1, m, 3], dtype=torch.int32)
+    counters = torch.zeros(len(EXPAND_COUNTERS), dtype=torch.int64)
+    count_expand_plain(nmatch, counters)
+    assert dict(zip(EXPAND_COUNTERS, counters.tolist())) == {
+        "pairs": 2 * HEAVY + 5 + m, "heavy_pairs": HEAVY + 1 + m,
+        "warp_max_pairs": m, "split_pairs": split}
 
 
 @pytest.mark.parametrize("bad", [
-    torch.zeros(3, dtype=torch.int32),          # not int64
-    torch.zeros(4, dtype=torch.int64),          # not three counts
-    torch.zeros(6, dtype=torch.int64)[::2],     # not contiguous
+    torch.zeros(4, dtype=torch.int32),          # not int64
+    torch.zeros(3, dtype=torch.int64),          # not four counts
+    torch.zeros(8, dtype=torch.int64)[::2],     # not contiguous
 ])
 def test_cpu_expand_rejects_bad_counters(bad):
     table, pbkt, pk, prid, mo = _case("hot_key_4096")

@@ -112,7 +112,7 @@ def test_csr_probe_kernels_match_plain_steps(dev, name):
     got_entry, got_nmatch = kcsr.csr_lookup(table, pbkt, pk)
     got = kcsr.csr_probe_join(table, pbkt, pk, prid, mo)
     torch.cuda.synchronize()
-    assert launch_counts()["csr_probe"] == 3
+    assert launch_counts()["csr_probe"] == 4
     assert torch.equal(got_entry, entry) and torch.equal(got_nmatch, nmatch)
     _same_result(got, want)
 
@@ -123,7 +123,8 @@ def test_csr_probe_at_2_24_matches_plain_steps(dev, kind):
     bits, ``max_out`` 4 n + 1088 and half the pairs; uniform, and a
     Zipf-skewed S whose keys at three ranks match 4096 build tuples
     each.  ``partitioned_join`` launches the lookup and the expand once
-    each (and D for S's bucket ids), and equals the plain steps."""
+    each (the expand in two launches; and D for S's bucket ids), and
+    equals the plain steps."""
     n, bits, shj = 1 << 24, 13, 9
     r, s, table, pbkt = csr_ref.phj_probe_inputs(n, kind, (bits,),
                                                  device=dev)
@@ -143,7 +144,7 @@ def test_csr_probe_at_2_24_matches_plain_steps(dev, kind):
     reset_launch_counts()
     got = partitioned_join(r, s, total_bits=bits, shj_bits=shj, max_out=mo)
     counts = launch_counts()
-    assert counts["csr_probe"] == 2 and counts["hash_bucket"] == 2, counts
+    assert counts["csr_probe"] == 3 and counts["hash_bucket"] == 2, counts
     _same_result(got, kcsr.csr_expand_plain(table, s.rid, entry, nmatch, mo))
     assert int(got.count) == total < mo
 
@@ -163,7 +164,7 @@ def test_table_probes_on_card_match_plain_steps(dev, name):
         tops.join_variants.probe_hash_table_variant(grel, gtable, mo, kind)
         for kind in tops.join_variants.JOIN_KINDS]
     torch.cuda.synchronize()
-    assert launch_counts()["csr_probe"] == 2 + 2 + 3
+    assert launch_counts()["csr_probe"] == 3 + 3 + 3
     want = [ht.probe_hash_table(rel, table, mo)] + [
         tops.join_variants.probe_hash_table_variant(rel, table, mo, kind)
         for kind in tops.join_variants.JOIN_KINDS]
@@ -200,7 +201,7 @@ def test_phj_query_launches_match_the_roofline_model(dev):
         assert +model == +Counter({k: counts[c]
                                    for k, c in rl.COUNTER_OF.items()}), \
             (hit, dict(model), counts)
-        assert counts["csr_probe"] == 2, counts
+        assert counts["csr_probe"] == 3, counts
 
 
 def _heavy_list_join():
@@ -220,30 +221,105 @@ def _heavy_list_join():
             tc.Relation(torch.arange(pk.shape[0], dtype=torch.int32), pk))
 
 
-@pytest.mark.parametrize("truncated", [False, True])
-def test_csr_expand_counts_a_2_20_rid_list_exactly(dev, truncated):
-    """The expand on a table with one 2^20-rid list (warp-written) and
-    many short ones: its pairs equal the plain expand's and its counters
-    ``count_expand_plain``'s, exactly, with the slots cut short or not."""
-    b, p = _heavy_list_join()
+def _list_join(sizes, order, seed):
+    """Build key k holds ``sizes[k]`` tuples (shuffled); the probe keys
+    are ``order`` as given, so probe i is lane i % 32 of warp i // 32 in
+    the expand's first round."""
+    g = torch.Generator().manual_seed(seed)
+    bk = torch.repeat_interleave(torch.arange(len(sizes)),
+                                 torch.tensor(sizes))
+    bk = bk[torch.randperm(bk.shape[0], generator=g)].to(torch.int32)
+    pk = torch.tensor(order, dtype=torch.int32)
+    return (tc.Relation(torch.arange(bk.shape[0], dtype=torch.int32), bk),
+            tc.Relation(torch.arange(pk.shape[0], dtype=torch.int32) + 7,
+                        pk))
+
+
+def _expand_case(name):
+    """``(build, probe)`` of a case of the expand's three paths: lists of
+    at most ``HEAVY`` rids, up to ``SPLIT``, and longer ones, which the
+    second grid writes."""
+    sp = kcsr.SPLIT
+    if name.startswith("list_2_20"):
+        return _heavy_list_join()
+    light = list(range(1, 40)) * 8            # keys 0-311: 1-39 rids
+    n = len(light)
+    if name == "split_edges":                 # SPLIT - 1, SPLIT, SPLIT + 1
+        sizes = light + [sp - 1, sp, sp + 1]
+        order = list(range(n)) + [n, n + 1, n + 2, n + 2, n + 1]
+    elif name == "splits_in_one_warp":        # lanes 0, 3, 4, 17, 31
+        sizes = light + [sp + 1, 3 * sp + 5, sp + 77, 5 * sp + 3, 9000]
+        hot = {0: 0, 3: 1, 4: 2, 17: 3, 31: 4, 40: 1, 41: 4}
+        order = [n + hot[i] if i in hot else i % n for i in range(2 * n)]
+    else:                                     # two hot keys mid-probe
+        sizes = light + ([3 * sp + 5, 2 * sp + 9] if name != "no_split"
+                         else [sp, sp // 2 + 3])
+        order = (list(range(0, n, 2)) + [n, n + 1] + list(range(1, n, 2))
+                 + [n + 1, n])
+    return _list_join(sizes, order, seed=len(name))
+
+
+def _expand_max_out(name, m: torch.Tensor) -> int:
+    """Half the pairs for "list_2_20_truncated"; for
+    "split_straddles_max_out" the middle of the first split list, so the
+    next starts past ``max_out``; else all the pairs and 64 slots."""
+    if name == "list_2_20_truncated":
+        return int(m.sum()) // 2
+    if name == "split_straddles_max_out":
+        first = int(torch.nonzero(m > kcsr.SPLIT)[0])
+        return int(m[:first].sum()) + int(m[first]) // 2 + 1
+    return int(m.sum()) + 64
+
+
+EXPAND_CASES = ("list_2_20", "list_2_20_truncated", "split_edges",
+                "splits_in_one_warp", "split_straddles_max_out", "no_split")
+
+
+@pytest.mark.parametrize("case", EXPAND_CASES)
+def test_csr_expand_counts_a_2_20_rid_list_exactly(dev, case):
+    """The expand on tables with rid lists up to ``HEAVY`` (thread-
+    written), up to ``SPLIT`` (warp-written) and longer (queued and split
+    across the second grid): one of 2^20 rids among many short ones, cut
+    short or not; lists of ``SPLIT`` - 1, ``SPLIT`` and ``SPLIT`` + 1 rids;
+    five split lists among the 32 probes of one warp; a split list that
+    ``max_out`` cuts and one that starts past it; none longer than
+    ``SPLIT`` (the second launch finds the queue empty).  Its pairs equal
+    the plain expand's bit for bit and its counters
+    ``count_expand_plain``'s, exactly."""
+    b, p = _expand_case(case)
     table = ht.build_hash_table(b, 1 << 14)
     bkt = ht.probe_p1(p.key, table.num_buckets)
     entry, nmatch = kcsr.csr_lookup_plain(table, bkt, p.key)
-    total = int(nmatch.sum(dtype=torch.int64))
-    assert int(nmatch.max()) == 1 << 20 and total > 3 << 20
-    mo = total // 2 if truncated else total + 64
+    m = nmatch.to(torch.int64)
+    mo = _expand_max_out(case, m)
     want = torch.zeros(len(kcsr.EXPAND_COUNTERS), dtype=torch.int64)
     kcsr.count_expand_plain(nmatch, want)
+    split = m > kcsr.SPLIT
+    assert want.tolist() == [int(m.sum()), int(m[m > kcsr.HEAVY].sum()),
+                             int(m.max()), int(m[split].sum())]
+    st = torch.cumsum(m, 0) - m
+    holds = {
+        "list_2_20": int(m.max()) == 1 << 20 and int(split.sum()) == 3,
+        "list_2_20_truncated": int(m.max()) == 1 << 20 and mo < int(m.sum()),
+        "split_edges": sorted(set(m[m > 39].tolist())) == [
+            kcsr.SPLIT - 1, kcsr.SPLIT, kcsr.SPLIT + 1],
+        "splits_in_one_warp": int(split[:32].sum()) == 5,
+        "split_straddles_max_out": bool(
+            (split & (st < mo) & (st + m > mo)).any())
+        and bool((split & (st >= mo)).any()),
+        "no_split": not split.any() and int(m.max()) == kcsr.SPLIT,
+    }[case]
+    assert holds
     gtable, grid, gentry, gnmatch = (x.to(dev) for x in
                                      (table, p.rid, entry, nmatch))
     counters = torch.zeros_like(want, device=dev)
+    reset_launch_counts()
     got = kcsr.csr_expand(gtable, grid, gentry, gnmatch, mo,
                           counters=counters)
+    assert launch_counts()["csr_probe"] == 2
     _same_result(got, kcsr.csr_expand_plain(gtable, grid, gentry, gnmatch,
                                             mo))
     assert counters.tolist() == want.tolist()
-    assert want.tolist() == [total, int(nmatch[nmatch > kcsr.HEAVY].sum()),
-                             1 << 20]
 
 
 def test_traced_partitioned_join_counts_its_expand_on_the_card(dev):
@@ -267,6 +343,7 @@ def test_traced_partitioned_join_counts_its_expand_on_the_card(dev):
     assert [expand.attrs[k] for k in names] == \
         [cpu_expand.attrs[k] for k in names]
     assert expand.attrs["warp_max_pairs"] == 1 << 20
+    assert expand.attrs["split_pairs"] == 3 << 20
 
 
 def test_csr_probe_wrappers_reject_bad_inputs(dev):

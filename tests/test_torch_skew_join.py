@@ -12,7 +12,7 @@ from bench.reference.join import join_pairs, pair_codes, wrong_pairs
 from repro_torch.core.coprocess import CoProcessor
 from repro_torch.core.relation import Relation
 from repro_torch.engine import JoinQuery, JoinQueryService, QueryPlanner
-from repro_torch.kernels.csr_probe import EXPAND_COUNTERS, HEAVY
+from repro_torch.kernels.csr_probe import EXPAND_COUNTERS, HEAVY, SPLIT
 
 
 def _relations(n: int, seed: int) -> dict:
@@ -25,9 +25,11 @@ def _relations(n: int, seed: int) -> dict:
 
 def _reference_counts(codes: torch.Tensor, n: int) -> list[int]:
     """EXPAND_COUNTERS of the reference's answer: its pairs, those of
-    probe tuples with more than ``HEAVY`` matches, the most matches."""
+    probe tuples with more than ``HEAVY`` matches, the most matches, and
+    those of probe tuples with more than ``SPLIT``."""
     m = torch.bincount(codes >> 32, minlength=n)
-    return [int(m.sum()), int(m[m > HEAVY].sum()), int(m.max())]
+    return [int(m.sum()), int(m[m > HEAVY].sum()), int(m.max()),
+            int(m[m > SPLIT].sum())]
 
 
 @pytest.mark.parametrize("n", [1 << 12, 1 << 14])
@@ -40,7 +42,7 @@ def test_zipf_join_through_the_service_matches_the_reference(built, n):
     assert want.shape[0] == n                    # each F tuple meets one P
     counts = _reference_counts(want, n)
     if built == "primary":
-        assert counts[1:] == [0, 1]
+        assert counts[1:] == [0, 1, 0]
     else:
         assert counts[1] > n // 2 and counts[2] > n // 16
     # A PHJ overhead below zero makes the planner pick PHJ at this size,
@@ -58,9 +60,10 @@ def test_zipf_join_through_the_service_matches_the_reference(built, n):
             expands = [s["attrs"] for s in out.trace
                        if s["name"] == "join.expand"]
             assert expands
-            pairs, heavy, longest = EXPAND_COUNTERS
+            pairs, heavy, longest, split = EXPAND_COUNTERS
             assert [sum(a[pairs] for a in expands),
                     sum(a[heavy] for a in expands),
-                    max(a[longest] for a in expands)] == counts
+                    max(a[longest] for a in expands),
+                    sum(a[split] for a in expands)] == counts
     finally:
         svc.close()
