@@ -44,6 +44,9 @@ from .phj import partitioned_join, resolve_schedule
 from .relation import Relation, bucket_of, radix_of, resolve_device
 from .shj import concat_results
 
+# The span of each side's partition passes inside the ``partition`` phase.
+PARTITION_SPANS = {"R": "partition.build", "S": "partition.probe"}
+
 
 def _round_up(n: int, k: int) -> int:
     return ((n + k - 1) // k) * k
@@ -650,15 +653,25 @@ class CoProcessor:
                     timing.notes[f"{tag}_resumed_at"] = start
                 todo.append((tag, rel, start))
             for tag, rel, start in todo:
-                if ctx is not None or start:
-                    parts[tag] = self._partition_side_cooperative(
-                        tag, rel, sched, partition_ratio, ctx, start, timing)
-                    continue
-                pieces = [grp.launch(radix_partition_scheduled)(
-                    r, schedule=sched).rel
-                    for grp, r in self._slices(rel, partition_ratio, timing)]
-                _maybe_fault("d2h")
-                parts[tag] = self._collect(pieces)
+                # Each side's passes, device-timed on G's stream: ``rows``
+                # the side's tuples, ``card_rows`` those of G's slice.
+                with self.tracer.span(
+                        PARTITION_SPANS[tag], device=self.g.device,
+                        rows=rel.size,
+                        card_rows=rel.size - self._cut(rel.size,
+                                                       partition_ratio),
+                        passes=len(sched) - start):
+                    if ctx is not None or start:
+                        parts[tag] = self._partition_side_cooperative(
+                            tag, rel, sched, partition_ratio, ctx, start,
+                            timing)
+                    else:
+                        pieces = [grp.launch(radix_partition_scheduled)(
+                            r, schedule=sched).rel
+                            for grp, r in self._slices(rel, partition_ratio,
+                                                       timing)]
+                        _maybe_fault("d2h")
+                        parts[tag] = self._collect(pieces)
             if parts_out is not None:
                 for tag, _, _ in todo:
                     parts_out[tag] = parts[tag]

@@ -38,6 +38,7 @@ import dataclasses
 import queue
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -344,7 +345,10 @@ class JoinQueryService:
         # Fingerprint memo keyed by array identity: hot-table traffic
         # re-submits the same Relation objects, and re-hashing 8 bytes per
         # tuple on every repeat would tax exactly the queries the cache
-        # makes cheap.  Held references keep the ids stable; bounded FIFO.
+        # makes cheap.  Weak references tell a live array from a new one
+        # that reuses a dead one's id, without keeping the arrays alive: a
+        # client that drops a relation frees its memory (2 GiB of the card
+        # at 2^28 tuples).  Bounded FIFO.
         self._fp_cache: dict = {}
         # Service counters live in the metrics registry (per-tenant
         # labeled series; ``stats()`` reads them back in one snapshot).
@@ -532,7 +536,8 @@ class JoinQueryService:
             memo_key = (id(rel.rid), id(rel.key), num_buckets)
             with self._lock:
                 hit = self._fp_cache.get(memo_key)
-                if hit is not None:
+                if (hit is not None and hit[1]() is rel.rid
+                        and hit[2]() is rel.key):
                     if sp is not None:
                         sp.set(memo="hit")
                     return hit[0]
@@ -552,7 +557,8 @@ class JoinQueryService:
             with self._lock:
                 if len(self._fp_cache) > 256:
                     self._fp_cache.clear()
-                self._fp_cache[memo_key] = (fp.key, rel.rid, rel.key)
+                self._fp_cache[memo_key] = (fp.key, weakref.ref(rel.rid),
+                                            weakref.ref(rel.key))
             return fp.key
 
     def _device_wall(self, t0: float) -> float:
@@ -1239,6 +1245,9 @@ class JoinQueryService:
                     self._busy_workers -= 1
                 done.set()
                 self._queue.task_done()
+            # Hold nothing of a served query while waiting for the next:
+            # its relations are the client's to free.
+            item = q = box = done = None
 
     # -- admission pricing ---------------------------------------------------
     def _admission_estimate(self, q) -> tuple[float, float]:

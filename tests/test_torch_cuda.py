@@ -84,12 +84,12 @@ def test_phj_join_on_card_equals_cpu(dev, kind):
     passes = len(tc.resolve_schedule(n))
     # D: the final headers' pids and the join's bucket ids, per relation;
     # E: the final headers' histogram, per relation; the CSR probe's
-    # lookup and expand once each.
+    # lookup once and its expand's two grids.
     assert launch_counts() == {"partition_hist_fused": 2 * passes,
                                "radix_scatter": 2 * passes, "seg_agg": 0,
                                "hash_bucket": 4, "radix_hist": 2,
                                "partitioned_probe": 0, "flash_attn": 0,
-                               "ssd_intra_chunk": 0, "csr_probe": 2,
+                               "ssd_intra_chunk": 0, "csr_probe": 3,
                                "sha1_tree": 0}
     for w, g in zip(interop.to_numpy(want), interop.to_numpy(got)):
         assert np.array_equal(w, g)

@@ -16,6 +16,9 @@ the same run's spans and device trace, one JSON object:
 * ``join_device_ms``: the device time per execution of ``join.build``
   and ``join.probe``, and the two times the answered queries against
   the device's busy seconds in the profiler;
+* ``partition_device_ms``: the device time per execution of each
+  side's partition passes, ``partition.build`` and ``partition.probe``
+  (0 for an execution that reused the side's layout);
 * ``join_phase``: the profiler's operations inside the ``join`` phase
   spans (moved onto the host's clock), split into the join's own and
   the rest (copies to the host and random draws: the other client's
@@ -58,6 +61,7 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 NEW = ("fingerprint", "fingerprint.pull", "fingerprint.hash", "lock_wait")
 STEPS = ("join.build", "join.probe")
+PARTITION_SIDES = ("partition.build", "partition.probe")
 # Operations on the card that the join phase does not launch.
 FOREIGN = ("DtoH", "distribution")
 
@@ -120,6 +124,8 @@ def traced_run(cell: str, seed: int, seconds: float) -> None:
                                         "service.lock_wait_ms"))
     steps = {name: mean_ms(per_execution(r.spans, (name,), device_time))
              for name in STEPS}
+    sides = {name: mean_ms(per_execution(r.spans, (name,), device_time))
+             for name in PARTITION_SIDES}
     join_s = (steps["join.build"] or 0.0) + (steps["join.probe"] or 0.0)
     join_s *= len(r.queries) / 1e3
     labels = [(s.name, s.t0, s.t1) for s in r.spans if s.lane is None]
@@ -133,6 +139,7 @@ def traced_run(cell: str, seed: int, seconds: float) -> None:
         "self_plus_fingerprint_plus_lock_wait_ms": parts,
         "identity_rel_diff": (parts - without) / without if without else None,
         "join_device_ms": steps,
+        "partition_device_ms": sides,
         "answered": len(r.queries),
         "join_build_plus_probe_device_s": join_s,
         "device_busy_s": r.device.busy_s,
